@@ -1,0 +1,325 @@
+"""GPT-2 in PyTorch: the port of ``tepdist_tpu/models/gpt2.py``.
+
+Parameters are the JAX package's pytree as nested dicts of tensors, with the
+same names, shapes and dtypes: matrices and biases in ``cfg.dtype`` (bf16
+for the real configs), LayerNorm gains and biases in fp32. Both layouts are
+kept: unrolled ``h{i}`` blocks and stacked ``blocks`` ([L, ...] leaves, the
+scan-over-layers form the big configs train in). The functions mirror their
+JAX namesakes op for op (LayerNorm math in fp32, tanh GELU, logits cast to
+fp32 after the matmul, chunked cross-entropy with a zero-padded masked
+tail), so the tests can hold one against the other.
+
+Remat: ``cfg.remat`` checkpoints each block with
+``torch.utils.checkpoint(use_reentrant=False)``, which recomputes the whole
+block in backward: the JAX package's ``remat_policy="full"``. The other JAX
+policies (``dots``, ``dots_no_batch``, ``save_attn``) are not ported and
+raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from tepdist_tpu_torch.core.device import resolve_device
+from tepdist_tpu_torch.ops.flash_attention import flash_attention
+
+
+@dataclasses.dataclass(frozen=True)
+class GPT2Config:
+    vocab_size: int = 50257
+    n_ctx: int = 1024
+    n_embd: int = 768
+    n_layer: int = 12
+    n_head: int = 12
+    dtype: torch.dtype = torch.bfloat16
+    # "einsum" (dense softmax attention) or "flash" (the port's kernels).
+    attn: str = "einsum"
+    remat: bool = False
+    # Only "full" is ported (see the module docstring).
+    remat_policy: str = "full"
+    # Flash tile sizes, validated against T as in the JAX package; they
+    # choose no CUDA tile (0 = unset).
+    flash_block_q: int = 0
+    flash_block_k: int = 0
+    # Chunked cross-entropy over this many tokens at a time (0 = dense).
+    loss_chunk: int = 0
+
+    @property
+    def head_dim(self) -> int:
+        return self.n_embd // self.n_head
+
+
+CONFIGS: Dict[str, GPT2Config] = {
+    "117M": GPT2Config(n_embd=768, n_layer=12, n_head=12),
+    "345M": GPT2Config(n_embd=1024, n_layer=24, n_head=16),
+    "762M": GPT2Config(n_embd=1280, n_layer=36, n_head=20),
+    "1.5B": GPT2Config(n_embd=1600, n_layer=48, n_head=25),
+    "175B": GPT2Config(n_embd=12288, n_layer=96, n_head=96, n_ctx=2048),
+    # tiny config for tests
+    "test": GPT2Config(vocab_size=512, n_ctx=64, n_embd=64, n_layer=2,
+                       n_head=4, dtype=torch.float32),
+}
+
+_EMBED_KEYS = ("wte", "wpe", "ln_f_g", "ln_f_b")
+
+
+def num_params(cfg: GPT2Config) -> int:
+    d, L, v = cfg.n_embd, cfg.n_layer, cfg.vocab_size
+    per_layer = 12 * d * d + 13 * d
+    return v * d + cfg.n_ctx * d + L * per_layer + 2 * d
+
+
+def init_params(cfg: GPT2Config, seed: int = 0,
+                device="cuda") -> Dict[str, Any]:
+    """GPT-2 initialisation: normal(0.02), residual projections scaled by
+    1/sqrt(2*n_layer), zero biases, unit LayerNorm gains. Drawn from a
+    ``torch.Generator`` seeded with ``seed`` on ``device``; the values
+    differ from the JAX package's threefry draws."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    std = 0.02
+    resid_std = std / math.sqrt(2 * cfg.n_layer)
+    d = cfg.n_embd
+    f32 = torch.float32
+
+    def norm(shape, s):
+        x = torch.randn(shape, generator=gen, device=dev, dtype=f32)
+        return (x * s).to(cfg.dtype)
+
+    def const(shape, value, dtype):
+        return torch.full(shape, value, dtype=dtype, device=dev)
+
+    params: Dict[str, Any] = {
+        "wte": norm((cfg.vocab_size, d), std),
+        "wpe": norm((cfg.n_ctx, d), std),
+        "ln_f_g": const((d,), 1.0, f32),
+        "ln_f_b": const((d,), 0.0, f32),
+    }
+    for i in range(cfg.n_layer):
+        params[f"h{i}"] = {
+            "ln1_g": const((d,), 1.0, f32),
+            "ln1_b": const((d,), 0.0, f32),
+            "attn_qkv_w": norm((d, 3 * d), std),
+            "attn_qkv_b": const((3 * d,), 0.0, cfg.dtype),
+            "attn_proj_w": norm((d, d), resid_std),
+            "attn_proj_b": const((d,), 0.0, cfg.dtype),
+            "ln2_g": const((d,), 1.0, f32),
+            "ln2_b": const((d,), 0.0, f32),
+            "mlp_fc_w": norm((d, 4 * d), std),
+            "mlp_fc_b": const((4 * d,), 0.0, cfg.dtype),
+            "mlp_proj_w": norm((4 * d, d), resid_std),
+            "mlp_proj_b": const((d,), 0.0, cfg.dtype),
+        }
+    return params
+
+
+def _layer_norm(x, g, b, eps=1e-5):
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * g + b).to(x.dtype)
+
+
+def _flash_impl(cfg: GPT2Config) -> Callable:
+    def impl(q, k, v):
+        return flash_attention(q, k, v, causal=True,
+                               block_q=cfg.flash_block_q or None,
+                               block_k=cfg.flash_block_k or None)
+    return impl
+
+
+def _einsum_attention(q, k, v):
+    T = q.shape[2]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    # The scale in q's dtype, as JAX's weak typing rounds a Python scalar.
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k) * torch.tensor(
+        scale, dtype=q.dtype, device=q.device)
+    mask = torch.tril(torch.ones(T, T, dtype=torch.bool, device=q.device))
+    logits = torch.where(mask, logits.float(),
+                         torch.full((), -1e9, device=q.device))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v)
+
+
+def attention(block, x, cfg: GPT2Config, attn_impl: Optional[Callable] = None):
+    """``attn_impl(q, k, v)`` on [B, H, T, hd] overrides ``cfg.attn``."""
+    B, T, D = x.shape
+    H, hd = cfg.n_head, cfg.head_dim
+    qkv = x @ block["attn_qkv_w"] + block["attn_qkv_b"]
+    q, k, v = qkv.split(D, dim=-1)
+    q = q.reshape(B, T, H, hd).transpose(1, 2)
+    k = k.reshape(B, T, H, hd).transpose(1, 2)
+    v = v.reshape(B, T, H, hd).transpose(1, 2)
+    if attn_impl is None:
+        if cfg.attn == "flash":
+            attn_impl = _flash_impl(cfg)
+        elif cfg.attn == "einsum":
+            attn_impl = _einsum_attention
+        else:
+            raise ValueError(f"unknown attn {cfg.attn!r}; expected 'flash' "
+                             "or 'einsum'")
+    o = attn_impl(q, k, v)
+    o = o.transpose(1, 2).reshape(B, T, D)
+    return o @ block["attn_proj_w"] + block["attn_proj_b"]
+
+
+def mlp(block, x):
+    h = x @ block["mlp_fc_w"] + block["mlp_fc_b"]
+    h = F.gelu(h, approximate="tanh")
+    return h @ block["mlp_proj_w"] + block["mlp_proj_b"]
+
+
+def _check_remat(cfg: GPT2Config) -> None:
+    if cfg.remat_policy == "full":
+        return
+    if cfg.remat_policy in ("dots", "dots_no_batch", "save_attn"):
+        raise ValueError(f"remat_policy {cfg.remat_policy!r} is not ported; "
+                         "only 'full' is")
+    raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; expected "
+                     "'full' (the port's only policy)")
+
+
+def transformer_block(block, x, cfg: GPT2Config, attn_impl=None):
+    x = x + attention(block, _layer_norm(x, block["ln1_g"], block["ln1_b"]),
+                      cfg, attn_impl)
+    x = x + mlp(block, _layer_norm(x, block["ln2_g"], block["ln2_b"]))
+    return x
+
+
+def _run_blocks(blocks, x, cfg: GPT2Config, attn_impl):
+    """Apply each per-layer param dict in turn, each block under a
+    non-reentrant checkpoint when ``cfg.remat``."""
+    if cfg.remat:
+        _check_remat(cfg)
+    for block in blocks:
+        if cfg.remat:
+            x = checkpoint(transformer_block, block, x, cfg, attn_impl,
+                           use_reentrant=False)
+        else:
+            x = transformer_block(block, x, cfg, attn_impl)
+    return x
+
+
+def _embed(params, tokens, cfg: GPT2Config):
+    T = tokens.shape[1]
+    x = params["wte"][tokens.long()] + params["wpe"][:T]
+    return x.to(cfg.dtype)
+
+
+def hidden_states(params, tokens, cfg: GPT2Config, attn_impl=None):
+    """tokens: int [B, T] -> final (ln_f-normalised) hidden [B, T, D]."""
+    x = _embed(params, tokens, cfg)
+    x = _run_blocks([params[f"h{i}"] for i in range(cfg.n_layer)], x, cfg,
+                    attn_impl)
+    return _layer_norm(x, params["ln_f_g"], params["ln_f_b"])
+
+
+def forward(params, tokens, cfg: GPT2Config, attn_impl=None):
+    """tokens: int [B, T] -> logits [B, T, vocab] (fp32)."""
+    x = hidden_states(params, tokens, cfg, attn_impl)
+    return (x @ params["wte"].T).float()
+
+
+def _ce_chunk(xc, tc, mc, wte):
+    logits = (xc @ wte.T).float()                       # [chunk, V]
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, tc[:, None])[:, 0]
+    return ((logz - gold) * mc).sum()
+
+
+def _ce_from_hidden(x, wte, targets, cfg: GPT2Config):
+    """Cross entropy from final hidden states, optionally chunked: each
+    chunk of ``cfg.loss_chunk`` tokens runs under a checkpoint, so only one
+    [chunk, V] fp32 logits block lives at a time in either direction. A
+    non-dividing token count gets a zero-padded, masked tail chunk; the sum
+    is divided by the real token count."""
+    B, T, D = x.shape
+    chunk = cfg.loss_chunk
+    n_tokens = B * T
+    targets = targets.long()
+    if chunk <= 0:
+        logits = (x @ wte.T).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, targets[..., None])[..., 0]
+        return (logz - gold).mean()
+
+    n_chunks = -(-n_tokens // chunk)
+    pad = n_chunks * chunk - n_tokens
+    xf = x.reshape(n_tokens, D)
+    tf = targets.reshape(n_tokens)
+    valid = torch.ones(n_tokens, dtype=torch.float32, device=x.device)
+    if pad:
+        xf = torch.cat([xf, xf.new_zeros(pad, D)])
+        tf = torch.cat([tf, tf.new_zeros(pad)])
+        valid = torch.cat([valid, valid.new_zeros(pad)])
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        total = total + checkpoint(_ce_chunk, xf[sl], tf[sl], valid[sl], wte,
+                                   use_reentrant=False)
+    return total / n_tokens
+
+
+def loss_fn(params, tokens, cfg: GPT2Config, attn_impl=None):
+    """Next-token cross entropy over shifted tokens."""
+    x = hidden_states(params, tokens[:, :-1], cfg, attn_impl)
+    return _ce_from_hidden(x, params["wte"], tokens[:, 1:], cfg)
+
+
+# --------------------------------------------------------------------------
+# Stacked form: per-layer params stacked on a leading [L, ...] dim. The
+# JAX package scans over it; here a Python loop runs over one unbind of
+# each leaf, whose backward stacks the per-layer grads once.
+# --------------------------------------------------------------------------
+
+def stack_block_params(params, cfg: GPT2Config):
+    """h0..hN per-layer dicts -> one dict of [L, ...] stacked leaves."""
+    keys = params["h0"].keys()
+    return {k: torch.stack([params[f"h{i}"][k] for i in range(cfg.n_layer)])
+            for k in keys}
+
+
+def stacked_init_params(cfg: GPT2Config, seed: int = 0, device="cuda"):
+    """init_params in stacked form: {embed leaves, "blocks": {k: [L, ...]}}."""
+    params = init_params(cfg, seed, device)
+    out = {k: params[k] for k in _EMBED_KEYS}
+    out["blocks"] = stack_block_params(params, cfg)
+    return out
+
+
+def hidden_states_stacked(params, tokens, cfg: GPT2Config, attn_impl=None):
+    x = _embed(params, tokens, cfg)
+    per_key = {k: v.unbind(0) for k, v in params["blocks"].items()}
+    blocks = [{k: per_key[k][i] for k in per_key}
+              for i in range(cfg.n_layer)]
+    x = _run_blocks(blocks, x, cfg, attn_impl)
+    return _layer_norm(x, params["ln_f_g"], params["ln_f_b"])
+
+
+def forward_stacked(params, tokens, cfg: GPT2Config, attn_impl=None):
+    x = hidden_states_stacked(params, tokens, cfg, attn_impl)
+    return (x @ params["wte"].T).float()
+
+
+def loss_fn_stacked(params, tokens, cfg: GPT2Config, attn_impl=None):
+    x = hidden_states_stacked(params, tokens[:, :-1], cfg, attn_impl)
+    return _ce_from_hidden(x, params["wte"], tokens[:, 1:], cfg)
+
+
+def fake_batch(cfg: GPT2Config, batch_size: int,
+               seq_len: Optional[int] = None, seed: int = 0,
+               device="cuda") -> torch.Tensor:
+    """FAKE_INPUT-mode batch: uniform int64 tokens [batch_size, T + 1] from
+    a ``torch.Generator`` seeded with ``seed``."""
+    dev = resolve_device(device)
+    T = seq_len or cfg.n_ctx
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (batch_size, T + 1),
+                         generator=gen, device=dev)

@@ -1,0 +1,291 @@
+"""Flash attention (forward + backward) on hand-written Hopper kernels.
+
+The port of ``tepdist_tpu/ops/pallas/flash_attention.py``. Three CUDA
+kernels (``csrc/flash_fwd.cu``, ``flash_dq.cu``, ``flash_dkv.cu``) replace
+the three Pallas kernels; :func:`flash_attention` and
+:func:`flash_attention_with_lse` wrap them in ``torch.autograd.Function``s
+that mirror the two ``custom_vjp``s. The forward saves (O, LSE); the
+backward recomputes P from the LSE in two kernels, one accumulating dQ over
+key tiles and one accumulating dK/dV over query tiles, so no [T, T] matrix
+reaches device memory. An LSE cotangent folds into delta.
+
+Each kernel wrapper (:func:`flash_fwd`, :func:`flash_dq`, :func:`flash_dkv`)
+takes flattened [BH, T, D] tensors. On a CUDA tensor it launches its kernel
+(or raises) and adds one to :data:`launch_counts`; on a CPU tensor it runs
+the plain PyTorch version beside it (``*_plain``), which the CPU tests use.
+The kernels mask the ragged edge themselves, so any T works and the JAX
+package's pad-to-128 and dense fallbacks have no counterpart here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from tepdist_tpu_torch.ops import _build
+
+_NEG_INF = -1e30
+HEAD_DIMS = (16, 32, 64, 128)
+DTYPES = (torch.float32, torch.bfloat16)
+
+# Launches of each kernel since the last reset_launch_counts(); only a
+# successful kernel launch counts, never a plain-version call.
+launch_counts: Dict[str, int] = {"flash_fwd": 0, "flash_dq": 0,
+                                 "flash_dkv": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    # pointers..., BH, T, D, is_bf16, causal, scale, stream
+    "flash_fwd": [_P] * 5 + [_I] * 5 + [_F, _P],
+    "flash_dq": [_P] * 7 + [_I] * 5 + [_F, _P],
+    "flash_dkv": [_P] * 8 + [_I] * 5 + [_F, _P],
+}
+
+
+_entries: Dict[str, object] = {}
+
+
+def _entry(name: str):
+    """The C entry of kernel ``name``, its library built and loaded at the
+    first call."""
+    if name not in _entries:
+        fn = getattr(_build.load(name), f"tepdist_{name}")
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        _entries[name] = fn
+    return _entries[name]
+
+
+def _check(name: str, slabs, rows=()) -> torch.device:
+    """Validate what the kernel takes: same-shape contiguous [BH, T, D]
+    slabs of one dtype (fp32 or bf16) and D in HEAD_DIMS, fp32 [BH, T]
+    row vectors, all on one CPU or CUDA device."""
+    ref = slabs[0]
+    if ref.dim() != 3:
+        raise ValueError(f"{name}: expected [BH, T, D], got {tuple(ref.shape)}")
+    BH, T, D = ref.shape
+    if D not in HEAD_DIMS or T < 1 or BH < 1:
+        raise ValueError(f"{name}: shape {tuple(ref.shape)} unsupported "
+                         f"(head dim must be one of {HEAD_DIMS})")
+    if ref.dtype not in DTYPES:
+        raise TypeError(f"{name}: dtype {ref.dtype} unsupported "
+                        f"(float32 or bfloat16)")
+    if ref.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: device {ref.device} unsupported")
+    for t in slabs:
+        if t.shape != ref.shape or t.dtype != ref.dtype:
+            raise ValueError(f"{name}: operands differ in shape or dtype")
+    for t in rows:
+        if t.shape != (BH, T) or t.dtype != torch.float32:
+            raise ValueError(f"{name}: LSE/delta must be float32 [BH, T]")
+    for t in (*slabs, *rows):
+        if t.device != ref.device:
+            raise ValueError(f"{name}: operands on different devices")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    return ref.device
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = _entry(name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{err}")
+    launch_counts[name] += 1
+
+
+def _meta(q: torch.Tensor, causal: bool, scale: float):
+    BH, T, D = q.shape
+    return (BH, T, D, int(q.dtype == torch.bfloat16), int(causal),
+            float(scale))
+
+
+# --------------------------------------------------------------------------
+# Plain PyTorch versions: the same functions, dense, in fp32 (Q, K, V are
+# upcast before both dots, as in the Pallas kernels).
+# --------------------------------------------------------------------------
+
+def _scores(q, k, causal: bool, scale: float):
+    """Masked fp32 scores [BH, T, T] and the mask (True = attended)."""
+    s = (q.float() * scale) @ k.float().transpose(1, 2)
+    T = q.shape[1]
+    keep = torch.ones(T, T, dtype=torch.bool, device=q.device)
+    if causal:
+        keep = torch.tril(keep)
+    return torch.where(keep, s, torch.full_like(s, _NEG_INF)), keep
+
+
+def flash_fwd_plain(q, k, v, causal: bool, scale: float):
+    s, _ = _scores(q, k, causal, scale)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    p = torch.where(m <= _NEG_INF / 2, torch.zeros_like(p), p)
+    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    o = (p @ v.float()) / l
+    return o.to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def _probs_and_ds(q, k, v, do, lse, delta, causal, scale):
+    s, keep = _scores(q, k, causal, scale)
+    p = torch.where(keep, torch.exp(s - lse[..., None]), torch.zeros_like(s))
+    dp = do.float() @ v.float().transpose(1, 2)
+    return p, p * (dp - delta[..., None])
+
+
+def flash_dq_plain(q, k, v, do, lse, delta, causal: bool, scale: float):
+    _, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, scale)
+    return ((ds @ k.float()) * scale).to(q.dtype)
+
+
+def flash_dkv_plain(q, k, v, do, lse, delta, causal: bool, scale: float):
+    p, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, scale)
+    dk = ds.transpose(1, 2) @ (q.float() * scale)
+    dv = p.transpose(1, 2) @ do.float()
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+# --------------------------------------------------------------------------
+# Kernel wrappers
+# --------------------------------------------------------------------------
+
+def flash_fwd(q, k, v, causal: bool, scale: float
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[BH, T, D] q, k, v -> (o [BH, T, D], lse [BH, T] fp32)."""
+    device = _check("flash_fwd", (q, k, v))
+    if device.type == "cpu":
+        return flash_fwd_plain(q, k, v, causal, scale)
+    o = torch.empty_like(q)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=device)
+    _launch("flash_fwd", device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), lse.data_ptr(), *_meta(q, causal, scale))
+    return o, lse
+
+
+def flash_dq(q, k, v, do, lse, delta, causal: bool, scale: float
+             ) -> torch.Tensor:
+    """dQ [BH, T, D] from q, k, v, dO and the fp32 [BH, T] LSE and delta."""
+    device = _check("flash_dq", (q, k, v, do), (lse, delta))
+    if device.type == "cpu":
+        return flash_dq_plain(q, k, v, do, lse, delta, causal, scale)
+    dq = torch.empty_like(q)
+    _launch("flash_dq", device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            *_meta(q, causal, scale))
+    return dq
+
+
+def flash_dkv(q, k, v, do, lse, delta, causal: bool, scale: float
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV) [BH, T, D] from q, k, v, dO and the fp32 LSE and delta."""
+    device = _check("flash_dkv", (q, k, v, do), (lse, delta))
+    if device.type == "cpu":
+        return flash_dkv_plain(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_dkv", device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), *_meta(q, causal, scale))
+    return dk, dv
+
+
+# --------------------------------------------------------------------------
+# Differentiable ops
+# --------------------------------------------------------------------------
+
+def _flat(x: torch.Tensor) -> torch.Tensor:
+    B, H, T, D = x.shape
+    return x.reshape(B * H, T, D).contiguous()
+
+
+def _forward(ctx, q, k, v, causal, scale):
+    o, lse = flash_fwd(q, k, v, causal, scale)
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.causal, ctx.scale = causal, scale
+    return o, lse
+
+
+def _backward(ctx, do, dlse=None):
+    q, k, v, o, lse = ctx.saved_tensors
+    do = do.contiguous()
+    # delta = rowsum(dO * O); an LSE cotangent folds in here, since
+    # d lse / d s = P turns dS = P * (dP - delta + dLSE) into the same
+    # kernels with delta - dLSE.
+    delta = (do.float() * o.float()).sum(-1)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    delta = delta.contiguous()
+    dq = flash_dq(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
+    dk, dv = flash_dkv(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
+    return dq, dk, dv
+
+
+class _Flash(torch.autograd.Function):
+    """Flattened [BH, T, D] attention, O only (the ``_flash`` VJP)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        return _forward(ctx, q, k, v, causal, scale)[0]
+
+    @staticmethod
+    def backward(ctx, do):
+        return (*_backward(ctx, do), None, None)
+
+
+class _FlashWithLse(torch.autograd.Function):
+    """(O, LSE), both differentiable (the ``_flash_o_lse`` VJP)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        return _forward(ctx, q, k, v, causal, scale)
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        return (*_backward(ctx, do, dlse), None, None)
+
+
+def _resolve_blocks(T: int, block_q: Optional[int],
+                    block_k: Optional[int]) -> None:
+    """Validate explicit block sizes as the JAX package does (they must
+    divide T). They choose no CUDA tile: the kernels' tiles are fixed, and
+    the JAX default of 512 is a TPU sweep."""
+    if block_q is None and block_k is None:
+        return
+    bq = min(block_q or block_k, T)
+    bk = min(block_k or bq, T)
+    if T % bq or T % bk:
+        raise ValueError(f"seq len {T} must divide blocks {bq}/{bk}")
+
+
+def flash_attention(q, k, v, causal: bool = True,
+                    scale: Optional[float] = None,
+                    block_q: Optional[int] = None,
+                    block_k: Optional[int] = None) -> torch.Tensor:
+    """q, k, v: [B, H, T, D] -> [B, H, T, D]. Differentiable."""
+    B, H, T, D = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    _resolve_blocks(T, block_q, block_k)
+    o = _Flash.apply(_flat(q), _flat(k), _flat(v), causal, scale)
+    return o.reshape(B, H, T, D)
+
+
+def flash_attention_with_lse(q, k, v, causal: bool = True,
+                             scale: Optional[float] = None,
+                             block_q: Optional[int] = None,
+                             block_k: Optional[int] = None):
+    """[B, H, T, D] -> (o [B, H, T, D], lse [B, H, T] fp32), both
+    differentiable (the LSE cotangent folds into the backward's delta)."""
+    B, H, T, D = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    _resolve_blocks(T, block_q, block_k)
+    o, lse = _FlashWithLse.apply(_flat(q), _flat(k), _flat(v), causal, scale)
+    return o.reshape(B, H, T, D), lse.reshape(B, H, T)

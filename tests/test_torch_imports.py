@@ -1,0 +1,32 @@
+"""The port imports neither jax nor anything of tepdist_tpu: every module
+of tepdist_tpu_torch, and chip_smoke.py, imported in a fresh interpreter
+(the pytest process has jax loaded already)."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, pkgutil, sys
+import tepdist_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(tepdist_tpu_torch.__path__,
+                                               "tepdist_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+import torch, torch.nn.functional  # what chip_smoke's phases import
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "tepdist_tpu."))
+             or m == "tepdist_tpu")
+print(len(names), bad)
+sys.exit(1 if bad or len(names) < 10 else 0)
+"""
+
+
+def test_port_imports_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
