@@ -12,9 +12,9 @@ JSON lines:
 1. device: the card, and its name and power limit from nvidia-smi;
 2. build: compile the three flash-attention kernels from ``csrc/``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shape and at a ragged fp32 shape, with times beside the
-   roofline bound and PyTorch's own flash-attention forward and backward
-   calls (a yardstick only: the port never calls them);
+   the main path's shape and at ragged fp32 and bf16 shapes, with times
+   beside the roofline bound and PyTorch's own flash-attention forward and
+   backward calls (a yardstick only: the port never calls them);
 4. parity: a 2-layer model at full 1.5B width, loss and grads through the
    kernels against the plain versions;
 5. slice: GPT-2 1.5B at full width and depth for 6 steps, with per-step
@@ -150,12 +150,14 @@ def phase_build():
 
 
 def _ptxas_report(log: str) -> dict:
-    """{"<dtype>/D<d>": "<registers> regs, <bytes> B spilled"} for each
-    kernel instantiation in an ``nvcc -Xptxas -v`` log."""
+    """{"<dtype>/D<d>": {"spill_store_bytes": n, "registers": n}} for each
+    kernel instantiation in an ``nvcc -Xptxas -v`` log. The tensor-core
+    kernels (``*_mma_kernel<D>``) take bf16 only, so they carry no type
+    argument."""
     out, key = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\w*kernelI(f|13__nv_bfloat16)"
-                      r"Li(\d+)E", line)
+        m = re.search(r"Compiling entry function '\w*kernelI"
+                      r"(f|13__nv_bfloat16)?Li(\d+)E", line)
         if m:
             key = f"{'fp32' if m.group(1) == 'f' else 'bf16'}/D{m.group(2)}"
         m = re.search(r"(\d+) bytes spill stores", line)
@@ -287,6 +289,13 @@ def phase_kernels():
                                causal=True), False),
         ("ragged_full", dict(B=2, H=4, T=100, D=16, dtype=torch.float32,
                              causal=False), False),
+        # The bf16 tensor-core path at a ragged edge.
+        ("ragged_bf16_causal", dict(B=2, H=4, T=100, D=64,
+                                    dtype=torch.bfloat16, causal=True),
+         False),
+        ("ragged_bf16_full", dict(B=2, H=4, T=257, D=128,
+                                  dtype=torch.bfloat16, causal=False),
+         False),
     ]
     results = {}
     for i, (label, shape, time_it) in enumerate(cases):

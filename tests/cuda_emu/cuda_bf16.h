@@ -19,3 +19,4 @@ inline __nv_bfloat16 __float2bfloat16(float f) {
   u += 0x7fff + ((u >> 16) & 1);
   return __nv_bfloat16{(uint16_t)(u >> 16)};
 }
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 x) { return x.bits; }

@@ -43,6 +43,7 @@ def _assert_close(got, ref, bf16, name):
     (130, 64, torch.bfloat16, True),
     (33, 128, torch.float32, True),
     (257, 32, torch.bfloat16, False),
+    (200, 128, torch.bfloat16, True),
 ])
 def test_kernels_match_plain(cuda, T, D, dtype, causal):
     gen = torch.Generator(device=cuda).manual_seed(T + D)

@@ -5,8 +5,11 @@ PyTorch versions.
 No GPU or nvcc is needed: each CUDA thread runs as a host thread and
 ``__syncthreads`` is a barrier, so the kernels' indexing, tiling, causal
 tile skipping, ragged-edge masking and online softmax run exactly as
-written, in fp32 on the host. That checks their logic on every host; only
-``chip_smoke.py`` checks them as nvcc builds them, on the card.
+written, in fp32 on the host. The tensor-core instructions of the bf16
+backward kernels (``csrc/flash_mma.cuh``) run as host stand-ins with the
+same fragment layouts (``tests/cuda_emu/flash_mma.cuh``). That checks their
+logic on every host; only ``chip_smoke.py`` checks them as nvcc builds
+them, on the card.
 
 Tolerance: fp32 atol 2e-5 / rtol 1e-4 (sums in another order). bf16
 outputs: both sides compute in fp32 and round once to bf16, so they may
@@ -82,6 +85,18 @@ def _close(got, ref, bf16):
     (64, 32, torch.bfloat16, False),
     (33, 128, torch.float32, True),
     (1, 16, torch.float32, True),
+    # bf16 dQ and dK/dV run on the tensor-core stand-ins (flash_mma.cuh):
+    # ragged and aligned T, one and several tiles, every head dim.
+    (100, 16, torch.bfloat16, True),
+    (100, 16, torch.bfloat16, False),
+    (100, 128, torch.bfloat16, True),
+    (100, 128, torch.bfloat16, False),
+    (1, 16, torch.bfloat16, True),
+    (1, 16, torch.bfloat16, False),
+    (1, 128, torch.bfloat16, True),
+    (1, 128, torch.bfloat16, False),
+    (128, 32, torch.bfloat16, True),
+    (192, 64, torch.bfloat16, False),
 ])
 def test_kernel_sources_match_plain(emulated, T, D, dtype, causal):
     rng = np.random.default_rng(T * 131 + D)
