@@ -19,7 +19,9 @@ JSON lines:
    kernels against the plain versions;
 5. slice: GPT-2 1.5B at full width and depth for 6 steps, with per-step
    launch counts of the kernels; the losses must be finite and the sixth
-   below the first.
+   below the first. A seventh step runs under ``torch.profiler``: device
+   time by kernel, the device's busy share, and the flash kernels' time
+   with their inputs cold (a measurement, not a check).
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Any failed check raises, so the script exits non-zero before that
@@ -189,7 +191,7 @@ def _within(got, ref, ref32):
             bool(torch.all(err <= lim).item()))
 
 
-def _case(B, H, T, D, dtype, causal, seed, time_it):
+def _case(B, H, T, D, dtype, causal, seed, time_it, q_mul=1):
     import torch
     import torch.nn.functional as F
 
@@ -202,6 +204,7 @@ def _case(B, H, T, D, dtype, causal, seed, time_it):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
     q, k, v, do = (rand(BH, T, D) for _ in range(4))
+    q = q * q_mul  # a power of two: exact in bf16
     dlse = torch.randn(BH, T, generator=gen, device="cuda")
     scale = 1.0 / math.sqrt(D)
     up = [x.float() for x in (q, k, v, do)]
@@ -296,6 +299,12 @@ def phase_kernels():
         ("ragged_bf16_full", dict(B=2, H=4, T=257, D=128,
                                   dtype=torch.bfloat16, causal=False),
          False),
+        # q times 8: the scores spread over about +-30, so the forward's
+        # running max rises across key tiles and its rescaling by
+        # exp(m - m_new) carries the result.
+        ("large_bf16_causal", dict(B=2, H=4, T=300, D=64,
+                                   dtype=torch.bfloat16, causal=True,
+                                   q_mul=8), False),
     ]
     results = {}
     for i, (label, shape, time_it) in enumerate(cases):
@@ -429,7 +438,91 @@ def phase_slice():
         raise SystemExit(f"chip_smoke: loss did not fall {losses}")
     if any(step != want for step in per_step):
         raise SystemExit(f"chip_smoke: launches {per_step} != {want}")
+    _profile_step(plan, tokens, sorted(steady)[len(steady) // 2])
     return launches
+
+
+# Device-time groups of the profiled step, by kernel name (first match).
+PROFILE_GROUPS = (
+    ("flash attention", r"\btepdist::flash_"),
+    ("matmul", r"gemm|nvjet|cutlass|xmma"),
+    ("copy and cast", r"copy|Memcpy|Memset"),
+    ("elementwise", r"elementwise"),
+    ("reduction", r"reduce"),
+)
+
+
+def _is_device_activity(event) -> bool:
+    kind = getattr(event, "activity_type", None)
+    if kind is not None:
+        return kind in ("kernel", "gpu_memcpy", "gpu_memset")
+    return (str(event.device_type).endswith("CUDA")
+            and not getattr(event, "is_user_annotation", False))
+
+
+def _profile_step(plan, tokens, step_s: float) -> None:
+    """One more step, after the checked ones, under ``torch.profiler``
+    (CPU and CUDA activities): device time by kernel name (top 15) and by
+    kind, the device's busy share of the profiled step (whose host work
+    the profiler slows) and the device time over ``step_s``, the median
+    unprofiled step, and the flash kernels' summed time with their inputs
+    as the step leaves them (cold from the QKV matmul, where the kernels
+    phase times them warm in L2). A measurement, not a check: a profiler
+    that records no device time is reported and the run goes on."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    label = "chip_smoke_step"
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(label):
+            plan.step(tokens)
+    events = prof.events()
+    window = next(e for e in events if e.name == label
+                  and not _is_device_activity(e))
+    w0, w1 = window.time_range.start, window.time_range.end
+    spans, by_name = [], {}
+    for e in events:
+        if not _is_device_activity(e):
+            continue
+        t0, t1 = e.time_range.start, e.time_range.end
+        spans.append((t0, t1))
+        rec = by_name.setdefault(e.name, [0.0, 0])
+        rec[0] += (t1 - t0) / 1e3
+        rec[1] += 1
+    if not spans:
+        emit({"phase": "profile", "device_ms": None,
+              "note": "the profiler recorded no device time; kernel times "
+                      "stand only from the kernels phase (CUDA events)"})
+        return
+    busy_us, end = 0.0, w0
+    for t0, t1 in sorted(spans):
+        t0, t1 = max(t0, end), min(t1, w1)
+        if t1 > t0:
+            busy_us += t1 - t0
+            end = t1
+    flash = {}
+    for name in KERNELS:
+        hits = [rec for kname, rec in by_name.items()
+                if re.search(rf"\b{name}_(mma_)?kernel\b", kname)]
+        ms, n = sum(r[0] for r in hits), sum(r[1] for r in hits)
+        flash[name] = {"ms": ms, "launches": n,
+                       "mean_ms": ms / n if n else None}
+    groups = {}
+    for kname, (ms, n) in by_name.items():
+        group = next((g for g, pattern in PROFILE_GROUPS
+                      if re.search(pattern, kname)), "other")
+        rec = groups.setdefault(group, {"ms": 0.0, "launches": 0})
+        rec["ms"] += ms
+        rec["launches"] += n
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    device_ms = sum(r[0] for r in by_name.values())
+    emit({"phase": "profile", "window_ms": (w1 - w0) / 1e3,
+          "device_ms": device_ms,
+          "device_busy_share": busy_us / (w1 - w0),
+          "device_ms_over_median_step": device_ms / (step_s * 1e3),
+          "flash_kernels": flash, "groups": groups,
+          "top_kernels": [{"name": n[:160], "ms": r[0], "launches": r[1]}
+                          for n, r in top]})
 
 
 def main() -> int:

@@ -5,7 +5,7 @@
 // LSE and delta are [BH, T] fp32. A CTA owns kRows rows of one (b*h) slab
 // and streams the other operand through shared memory.
 //
-// CUDA-core path (the forward, and fp32 dQ and dK/dV): each owned row has
+// CUDA-core path (fp32 forward, dQ and dK/dV): each owned row has
 // Split<D, ACC>::value threads, adjacent lanes of one warp; each thread
 // holds the row's accumulators for its share of the head dim (every
 // value-th float4 group) in registers, and the per-row dot products are
@@ -16,13 +16,13 @@
 // fp32 FMA, so the kernels compute what the Pallas kernels compute (they
 // upcast Q, K, V to fp32 before both dots).
 //
-// Tensor-core path (bf16 dQ and dK/dV): a CTA of kTcWarps warps, 16 owned
-// rows each; bf16 tiles in shared memory (Tc::stride), loaded with cp.async,
-// and every dot an mma.sync of flash_mma.cuh with fp32 sums. The first dots
-// (S, dP) multiply bf16 inputs exactly, as the Pallas kernels' fp32 dots of
-// upcast bf16 do; the second dots take the fp32 P or dS as a hi/lo pair of
-// bf16 values (split2), so the product carries P to about 2^-17 relative
-// instead of rounding it to bf16.
+// Tensor-core path (bf16 forward, dQ and dK/dV): a CTA of kTcWarps warps,
+// 16 owned rows each; bf16 tiles in shared memory (Tc::stride), loaded with
+// cp.async, and every dot an mma.sync of flash_mma.cuh with fp32 sums. The
+// first dots (S, dP) multiply bf16 inputs exactly, as the Pallas kernels'
+// fp32 dots of upcast bf16 do; the second dots take the fp32 P or dS as a
+// hi/lo pair of bf16 values (split2), so the product carries P to about
+// 2^-17 relative instead of rounding it to bf16.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -165,15 +165,15 @@ __device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
                  __float2bfloat16(x1 - __bfloat162float(h1)));
 }
 
-// Rows [row0, row0 + kRows) of one bf16 [T, D] slab into shared memory with
+// Rows [row0, row0 + ROWS) of one bf16 [T, D] slab into shared memory with
 // row stride Tc<D>::stride, by cp.async in 16-byte pieces; rows at or past T
 // (the ragged edge) are zero. The caller commits and waits.
-template <int D>
+template <int D, int ROWS = kRows>
 __device__ __forceinline__ void load_tile_async(
     __nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src, int row0,
     int T) {
   constexpr int kPieces = D / 8;  // 16-byte pieces per row
-  for (int idx = threadIdx.x; idx < kRows * kPieces; idx += blockDim.x) {
+  for (int idx = threadIdx.x; idx < ROWS * kPieces; idx += blockDim.x) {
     const int r = idx / kPieces, c = (idx % kPieces) * 8;
     const int g = row0 + r;
     cp_async_16(dst + r * Tc<D>::stride + c,
@@ -218,6 +218,38 @@ __device__ __forceinline__ void scores(float (&s)[N / 8][4],
   }
 }
 
+// One warp's S = A X^T for R blocks of 16 owned rows against N streamed
+// rows (x: the first, in shared memory), D deep, with the A operands in
+// registers (a[r][kk]: block r, columns 16kk..16kk+15, as ldmatrix_x4 with
+// pattern "a" leaves them). Each B operand is loaded once for all R blocks.
+// Tile j of s[r] covers streamed rows 8j..8j+7 in the accumulator layout.
+template <int D, int N, int R>
+__device__ __forceinline__ void score(float (&s)[R][N / 8][4],
+                                      const uint32_t (&a)[R][D / 16][4],
+                                      const __nv_bfloat16* x) {
+  constexpr int S = Tc<D>::stride;
+  const int lane = threadIdx.x % 32;
+  const int br = ldm_row_b(lane), bc = ldm_col_b(lane);
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[r][j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+    for (int jj = 0; jj < N / 16; ++jj) {
+      uint32_t fx[4];
+      ldmatrix_x4(fx, x + (jj * 16 + br) * S + kk * 16 + bc);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        mma_bf16_16816(s[r][2 * jj], a[r][kk], fx);
+        mma_bf16_16816(s[r][2 * jj + 1], a[r][kk], fx + 2);
+      }
+    }
+}
+
 // acc += P X for one warp: P (16 x N, fp32, in the layout scores() leaves)
 // against N streamed rows of X (x: the first, in shared memory), D wide.
 // Two tiles of P make one A operand straight from registers, fed as a
@@ -248,12 +280,14 @@ __device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
   }
 }
 
-// One warp's 16 x D fp32 accumulator, times mul, to rows [row0, row0 + 16)
-// of a bf16 [T, D] slab; rows at or past T are not written.
+// One warp's 16 x D fp32 accumulator to rows [row0, row0 + 16) of a bf16
+// [T, D] slab, this lane's row row0 + lane / 4 times mul[0] and the row 8
+// below it times mul[1]; rows at or past T are not written.
 template <int D>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ out,
                                            const float (&acc)[D / 8][4],
-                                           int row0, int T, float mul) {
+                                           int row0, int T,
+                                           const float (&mul)[2]) {
   const int lane = threadIdx.x % 32;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -262,10 +296,20 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ out,
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int c = 8 * j + 2 * (lane % 4);
-      out[(size_t)r * D + c] = __float2bfloat16(acc[j][2 * h] * mul);
-      out[(size_t)r * D + c + 1] = __float2bfloat16(acc[j][2 * h + 1] * mul);
+      out[(size_t)r * D + c] = __float2bfloat16(acc[j][2 * h] * mul[h]);
+      out[(size_t)r * D + c + 1] =
+          __float2bfloat16(acc[j][2 * h + 1] * mul[h]);
     }
   }
+}
+
+// The same, every row times one mul.
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ out,
+                                           const float (&acc)[D / 8][4],
+                                           int row0, int T, float mul) {
+  const float both[2] = {mul, mul};
+  store_rows<D>(out, acc, row0, T, both);
 }
 
 // Dynamic shared memory above 48 KB needs the attribute; set it every

@@ -1,9 +1,10 @@
-// The warp-level PTX instructions of the tensor-core kernels (flash_dq.cu and
-// flash_dkv.cu), one __device__ function each, and nothing else: every other
-// line of the kernels is plain CUDA C++. tests/cuda_emu/flash_mma.cuh is a
-// host stand-in with the same names and fragment layouts; flash_common.cuh
-// includes this header with angle brackets, so a host build that puts that
-// directory first on the include path picks the stand-in.
+// The warp-level PTX instructions of the tensor-core kernels (flash_fwd.cu,
+// flash_dq.cu and flash_dkv.cu), one __device__ function each, and nothing
+// else: every other line of the kernels is plain CUDA C++.
+// tests/cuda_emu/flash_mma.cuh is a host stand-in with the same names and
+// fragment layouts; flash_common.cuh includes this header with angle
+// brackets, so a host build that puts that directory first on the include
+// path picks the stand-in.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16" and
 // "ldmatrix"), with lane = threadIdx.x % 32, g = lane / 4, t = lane % 4:

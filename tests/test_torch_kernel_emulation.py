@@ -6,8 +6,8 @@ No GPU or nvcc is needed: each CUDA thread runs as a host thread and
 ``__syncthreads`` is a barrier, so the kernels' indexing, tiling, causal
 tile skipping, ragged-edge masking and online softmax run exactly as
 written, in fp32 on the host. The tensor-core instructions of the bf16
-backward kernels (``csrc/flash_mma.cuh``) run as host stand-ins with the
-same fragment layouts (``tests/cuda_emu/flash_mma.cuh``). That checks their
+kernels (``csrc/flash_mma.cuh``) run as host stand-ins with the same
+fragment layouts (``tests/cuda_emu/flash_mma.cuh``). That checks their
 logic on every host; only ``chip_smoke.py`` checks them as nvcc builds
 them, on the card.
 
@@ -134,3 +134,34 @@ def test_unsupported_head_dim_is_refused(emulated):
                                 q.data_ptr(), lse.data_ptr(), 1, 8, 24, 0, 1,
                                 0.2, None)
     assert err != 0
+
+
+@pytest.mark.parametrize("T,D,causal", [
+    (300, 64, True),
+    (300, 128, False),
+])
+def test_forward_large_scores_match_plain(emulated, T, D, causal):
+    """The bf16 forward with q times 8, so the scores spread over about
+    +-30 and the running max of most rows rises after their first key
+    tile: the rescaling by corr = exp(m - m_new) and the _NEG_INF guards
+    carry the result, and T = 300 leaves a ragged last tile."""
+    rng = np.random.default_rng(T * 7 + D)
+    q, k, v = (torch.tensor(rng.standard_normal((2, T, D)),
+                            dtype=torch.float32).to(torch.bfloat16)
+               for _ in range(3))
+    q = q * 8  # exact in bf16
+    scale = 1.0 / math.sqrt(D)
+    s, keep = tfa._scores(q, k, causal, scale)
+    # Of the rows that see more than one 64-key tile, most find a larger
+    # score after their first: the inputs exercise corr.
+    several = keep.sum(-1) > 64
+    rises = s.amax(-1) > s[..., :64].amax(-1)
+    assert rises[..., several].float().mean() > 0.5
+
+    o, lse = torch.empty_like(q), torch.empty(2, T)
+    assert emulated["flash_fwd"](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                 o.data_ptr(), lse.data_ptr(),
+                                 *tfa._meta(q, causal, scale), None) == 0
+    o_ref, lse_ref = tfa.flash_fwd_plain(q, k, v, causal, scale)
+    assert _close(o, o_ref, True), "o"
+    assert _close(lse, lse_ref, False), "lse"
