@@ -5,15 +5,17 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It drives the port's main path, the single-device GPT-2 1.5B training step
-(``plan_training`` + ``plan.step``), on the card, in phases that each print
-JSON lines:
+It drives the port's paths on the card through the entry points a user
+calls (``plan_training`` + ``plan.step``, ``plan.save``/``restore``,
+``sampling.sample``), in phases that each print JSON lines:
 
 1. device: the card, and its name and power limit from nvidia-smi;
 2. build: compile the three flash-attention kernels from ``csrc/``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shape and at ragged fp32 and bf16 shapes, with times
-   beside the roofline bound and PyTorch's own flash-attention forward and
+   the GPT-2 path's shape [4*25, 1024, 64], at the Llama path's
+   [4*16, 512, 128], at the remat phase's [8*25, 1024, 64] and at ragged
+   fp32 and bf16 shapes, with times beside
+   the roofline bound and PyTorch's own flash-attention forward and
    backward calls (a yardstick only: the port never calls them);
 4. parity: a 2-layer model at full 1.5B width, loss and grads through the
    kernels against the plain versions;
@@ -21,22 +23,49 @@ JSON lines:
    launch counts of the kernels; the losses must be finite and the sixth
    below the first. A seventh step runs under ``torch.profiler``: device
    time by kernel, the device's busy share, and the flash kernels' time
-   with their inputs cold (a measurement, not a check).
+   with their inputs cold (a measurement, not a check);
+6. llama: Llama 1B at full width and depth (bench.py's recipe: batch 4,
+   seq 512, ``adamw(1e-4)``) for 6 steps on the bytes of the repository's
+   text files, packed with ``data/tokens.py`` and fed through the
+   ``DevicePrefetcher``; finite losses, the sixth below the first, and
+   16 launches of each kernel a step, and a seventh step profiled as the
+   slice's is. After step 3 the plan saves a checkpoint (``block=False``,
+   then joined);
+7. checkpoint: a plan from other random weights restores that checkpoint;
+   every leaf must equal the saved one bit for bit and its step 4 the
+   uninterrupted step 4's loss bit for bit;
+8. remat: GPT-2 at 1.5B width and 4 layers, one forward and backward under
+   no remat and each policy: grads within the parity bounds of no
+   remat's, the flash forward launched 2L times under ``full``, ``dots``
+   and ``dots_no_batch`` and L times under ``save_attn`` and no remat, the
+   memory the forward keeps and the forward's peak each ordered no remat
+   > dots > save_attn > full, and the step's peak no remat > dots >=
+   save_attn, full. Each policy runs once more with the backward's memory
+   read at every autograd node, which locates the step's peak;
+9. sampling: GPT-2 1.5B at full width and depth; in fp32 with TF32 off, 32
+   greedy tokens after 8 prompts of 64 must equal the argmax of the full
+   forward at every generated position; the same generation timed in bf16;
+10. models: one ``plan_training`` step each of gpt_moe ``base-8e`` and Wide
+   ResNet ``CONFIGS[0]`` (bench.py's recipes), with finite losses.
 
-Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
-line. Any failed check raises, so the script exits non-zero before that
-line. It exits non-zero when no CUDA device is present or when run outside
-the repository.
+Then one ``{"kernels": [...]}`` line (a row for each kernel at each
+path's shape) and, last, the ``{"ok": true, ...}`` line. Any failed check
+raises, so the script exits non-zero before that line. It exits non-zero
+when no CUDA device is present or when run outside the repository.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 # Main-path recipe (bench.py's GPT-2 1.5B headline: attn="flash",
@@ -55,6 +84,17 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_ATOL, FP32_RTOL = 2e-5, 1e-4
 TOLERANCE = ("|kernel - plain| <= 2e-5 * max(1, max|ref|) + 1e-4 * |ref| "
              "+ 2 * |plain - plain on fp32 inputs| elementwise")
+# Llama path (bench.py's bench_llama: Llama 1B, flash, batch 4, seq 512,
+# adamw(1e-4), one micro batch), nothing cut; a checkpoint after step 3.
+LLAMA_BATCH, LLAMA_SEQ, LLAMA_STEPS, LLAMA_SAVE_AT = 4, 512, 6, 3
+# The repository's own text, packed as byte tokens (nothing is downloaded).
+TEXT_FILES = ("SURVEY.md", "PAPER.md", "DESIGN.md")
+# Remat phase: GPT-2 at 1.5B width, cut to 4 layers (the slice phase runs
+# all 48), batch 8 in one micro batch.
+REMAT_LAYERS, REMAT_BATCH = 4, 8
+REMAT_POLICIES = (None, "full", "dots", "dots_no_batch", "save_attn")
+# Sampling phase: 8 prompts of 64 tokens, 32 new tokens.
+SAMPLE_BATCH, SAMPLE_PROMPT, SAMPLE_NEW = 8, 64, 32
 # Model parity through the kernels vs through the plain versions at bf16:
 # the runs differ only where an fp32 result rounds to the other side of a
 # bf16 step (2**-8 relative), so hold the loss to 1e-3 relative and each
@@ -288,6 +328,9 @@ def phase_kernels():
     cases = [
         ("main_path", dict(B=mb, H=25, T=SEQ, D=64, dtype=torch.bfloat16,
                            causal=True), True),
+        # The Llama path: H = 16 query heads after the GQA repeat, D = 128.
+        ("llama_path", dict(B=LLAMA_BATCH, H=16, T=LLAMA_SEQ, D=128,
+                            dtype=torch.bfloat16, causal=True), True),
         ("ragged_causal", dict(B=2, H=4, T=100, D=16, dtype=torch.float32,
                                causal=True), False),
         ("ragged_full", dict(B=2, H=4, T=100, D=16, dtype=torch.float32,
@@ -305,6 +348,9 @@ def phase_kernels():
         ("large_bf16_causal", dict(B=2, H=4, T=300, D=64,
                                    dtype=torch.bfloat16, causal=True,
                                    q_mul=8), False),
+        # The remat phase: GPT-2 heads, the whole batch in one micro batch.
+        ("remat_path", dict(B=REMAT_BATCH, H=25, T=SEQ, D=64,
+                            dtype=torch.bfloat16, causal=True), True),
     ]
     results = {}
     for i, (label, shape, time_it) in enumerate(cases):
@@ -318,7 +364,7 @@ def phase_kernels():
             raise SystemExit(f"chip_smoke: {bad} disagree with their plain "
                              f"versions at {label}")
         results[label] = res
-    return results["main_path"]
+    return results["main_path"], results["llama_path"], results["remat_path"]
 
 
 def _plain_attention(q, k, v):
@@ -438,7 +484,8 @@ def phase_slice():
         raise SystemExit(f"chip_smoke: loss did not fall {losses}")
     if any(step != want for step in per_step):
         raise SystemExit(f"chip_smoke: launches {per_step} != {want}")
-    _profile_step(plan, tokens, sorted(steady)[len(steady) // 2])
+    _profile_step("GPT-2 1.5B", plan, tokens,
+                  sorted(steady)[len(steady) // 2])
     return launches
 
 
@@ -460,7 +507,7 @@ def _is_device_activity(event) -> bool:
             and not getattr(event, "is_user_annotation", False))
 
 
-def _profile_step(plan, tokens, step_s: float) -> None:
+def _profile_step(model: str, plan, tokens, step_s: float) -> None:
     """One more step, after the checked ones, under ``torch.profiler``
     (CPU and CUDA activities): device time by kernel name (top 15) and by
     kind, the device's busy share of the profiled step (whose host work
@@ -490,7 +537,7 @@ def _profile_step(plan, tokens, step_s: float) -> None:
         rec[0] += (t1 - t0) / 1e3
         rec[1] += 1
     if not spans:
-        emit({"phase": "profile", "device_ms": None,
+        emit({"phase": "profile", "model": model, "device_ms": None,
               "note": "the profiler recorded no device time; kernel times "
                       "stand only from the kernels phase (CUDA events)"})
         return
@@ -516,13 +563,407 @@ def _profile_step(plan, tokens, step_s: float) -> None:
         rec["launches"] += n
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     device_ms = sum(r[0] for r in by_name.values())
-    emit({"phase": "profile", "window_ms": (w1 - w0) / 1e3,
+    emit({"phase": "profile", "model": model,
+          "window_ms": (w1 - w0) / 1e3,
           "device_ms": device_ms,
           "device_busy_share": busy_us / (w1 - w0),
           "device_ms_over_median_step": device_ms / (step_s * 1e3),
           "flash_kernels": flash, "groups": groups,
           "top_kernels": [{"name": n[:160], "ms": r[0], "launches": r[1]}
                           for n, r in top]})
+
+
+def _text_batches(workdir: str):
+    """[LLAMA_BATCH, LLAMA_SEQ + 1] windows of the repository's text as
+    byte tokens, drawn with seed 0 from a token file in ``workdir``."""
+    from tepdist_tpu_torch.data import (TokenDataset, encode_bytes,
+                                        pack_token_file)
+
+    text = "".join(open(name, encoding="utf-8").read()
+                   for name in TEXT_FILES)
+    path = os.path.join(workdir, "text.bin")
+    pack_token_file(encode_bytes(text), path)
+    ds = TokenDataset(path)
+    return ds, itertools.islice(ds.batches(LLAMA_BATCH, LLAMA_SEQ, seed=0),
+                                LLAMA_STEPS)
+
+
+def _llama_plan(cfg, seed: int, example):
+    from tepdist_tpu_torch.models import llama
+    from tepdist_tpu_torch.optim import adamw
+    from tepdist_tpu_torch.train import plan_training
+
+    return plan_training(lambda p, t: llama.loss_fn(p, t, cfg), adamw(1e-4),
+                         llama.init_params(cfg, seed=seed), example,
+                         num_micro_batches=1)
+
+
+def phase_llama(workdir: str):
+    """Llama 1B, 6 steps on real tokens through the prefetcher; a
+    checkpoint after step 3. Returns the launches and what the checkpoint
+    phase needs."""
+    import torch
+
+    from tepdist_tpu_torch.core.tree import tree_leaves
+    from tepdist_tpu_torch.data import DevicePrefetcher
+    from tepdist_tpu_torch.models import llama
+    from tepdist_tpu_torch.ops import flash_attention as fa
+
+    cfg = dataclasses.replace(llama.CONFIGS["1B"], attn="flash")
+    ds, host_batches = _text_batches(workdir)
+    batches = DevicePrefetcher(host_batches)
+    first = next(batches)
+    t0 = time.perf_counter()
+    plan = _llama_plan(cfg, 0, first)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree_leaves(plan.variables()[0]))
+    ckpt_dir = os.path.join(workdir, "ckpt")
+    want = {n: cfg.n_layer for n in KERNELS}
+    torch.cuda.reset_peak_memory_stats()
+    losses, seconds, per_step, save = [], [], [], {}
+    fa.reset_launch_counts()
+    for i, batch in enumerate(itertools.chain([first], batches), 1):
+        before = dict(fa.launch_counts)
+        t0 = time.perf_counter()
+        losses.append(plan.step(batch))   # returns after a device sync
+        seconds.append(time.perf_counter() - t0)
+        per_step.append({n: fa.launch_counts[n] - before[n] for n in want})
+        if i == LLAMA_SAVE_AT:
+            # A host copy, so the step's peak memory does not count it.
+            save["state"] = [t.to("cpu", copy=True)
+                             for t in tree_leaves(plan.variables())]
+            t0 = time.perf_counter()
+            handle = plan.save(ckpt_dir, LLAMA_SAVE_AT, block=False)
+            save["snapshot_s"] = time.perf_counter() - t0
+            save["path"] = handle.result()
+            save["save_s"] = time.perf_counter() - t0
+        if i == LLAMA_SAVE_AT + 1:
+            save["batch"], save["loss"] = batch, losses[-1]
+    launches = dict(fa.launch_counts)
+    steady = seconds[1:]
+    emit({"phase": "llama", "model": "Llama 1B", "n_params": n_params,
+          "dim": cfg.dim, "n_layer": cfg.n_layer, "n_head": cfg.n_head,
+          "n_kv_head": cfg.n_kv_head, "head_dim": cfg.head_dim,
+          "ffn_dim": cfg.ffn_dim, "vocab": cfg.vocab_size,
+          "batch": LLAMA_BATCH, "seq": LLAMA_SEQ, "micro_batches": 1,
+          "optimizer": "adamw(1e-4)", "cut": "none",
+          "data": {"files": list(TEXT_FILES), "tokens": len(ds),
+                   "tokenizer": "bytes"},
+          "setup_seconds": setup_s, "losses": losses,
+          "step_seconds": seconds,
+          "tokens_per_s": LLAMA_BATCH * LLAMA_SEQ * len(steady) / sum(steady),
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+          "launches_per_step": per_step, "expected_per_step": want})
+    if not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"chip_smoke: non-finite Llama loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise SystemExit(f"chip_smoke: Llama loss did not fall {losses}")
+    if any(step != want for step in per_step):
+        raise SystemExit(f"chip_smoke: Llama launches {per_step} != {want}")
+    _profile_step("Llama 1B", plan, save["batch"],
+                  sorted(steady)[len(steady) // 2])
+    save["cfg"], save["dir"] = cfg, ckpt_dir
+    return launches, save
+
+
+def phase_checkpoint(save) -> None:
+    """A plan from other random weights restores the step-3 checkpoint:
+    every leaf bit for bit, and its step 4 the uninterrupted loss bit for
+    bit (the step's loss is a forward on equal state, and the kernels use
+    no atomics)."""
+    import torch
+
+    from tepdist_tpu_torch.core.tree import tree_leaves
+
+    plan = _llama_plan(save["cfg"], 1, save["batch"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = plan.restore(save["dir"])
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    leaves = tree_leaves(plan.variables())
+    equal = [torch.equal(a.cpu(), b)
+             for a, b in zip(leaves, save.pop("state"))]
+    loss = plan.step(save["batch"])
+    nbytes = os.path.getsize(save["path"])
+    disk = shutil.disk_usage(save["dir"])
+    emit({"phase": "checkpoint", "step_restored": step,
+          "bytes_written": nbytes, "leaves": len(leaves),
+          "snapshot_seconds": save["snapshot_s"],
+          "save_seconds": save["save_s"], "restore_seconds": restore_s,
+          "save_gb_per_s": nbytes / save["save_s"] / 1e9,
+          "restore_gb_per_s": nbytes / restore_s / 1e9,
+          "free_disk_bytes": disk.free,
+          "leaves_equal": sum(equal), "step4_loss": save["loss"],
+          "step4_loss_restored": loss})
+    if step != LLAMA_SAVE_AT or not all(equal) or len(equal) != len(leaves):
+        raise SystemExit(f"chip_smoke: restored step {step}, "
+                         f"{sum(equal)}/{len(leaves)} leaves equal")
+    if loss != save["loss"]:
+        raise SystemExit(f"chip_smoke: step 4 after restore {loss!r} != "
+                         f"{save['loss']!r}")
+
+
+def _backward_timeline(loss, leaves):
+    """``torch.autograd.grad(loss, leaves)`` with a pre- and a post-hook on
+    every node of the graph, each reading the allocator's bytes and its
+    peak since the previous hook. Returns the grads and the segments, in
+    the order the backward ran them: ``(node, "in" or "after", bytes at
+    the segment's start, its peak)``; "in" is the node's own run (with any
+    recompute it triggers), "after" the engine's work that follows it."""
+    import torch
+
+    marks, handles, seen, stack = [], [], set(), [loss.grad_fn]
+
+    def mark(node, when):
+        marks.append((node.name(), when, torch.cuda.memory_allocated(),
+                      torch.cuda.max_memory_allocated()))
+        torch.cuda.reset_peak_memory_stats()
+
+    while stack:
+        node = stack.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        handles.append(node.register_prehook(
+            lambda grad_out, n=node: mark(n, "pre")))
+        handles.append(node.register_hook(
+            lambda grad_in, grad_out, n=node: mark(n, "post")))
+        stack.extend(f for f, _ in node.next_functions)
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    try:
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for h in handles:
+            h.remove()
+    segments, prev = [], ("backward start", "after", start)
+    for name, when, now, peak in marks:
+        segments.append((prev[0] if when == "pre" else name,
+                         "after" if when == "pre" else "in", prev[2], peak))
+        prev = (name, when, now)
+    return grads, segments
+
+
+def _peak_of_timeline(segments) -> dict:
+    """Where a backward's peak falls: the segment that holds it, its place
+    in the run, whether it comes after the blocks' backward (the last run
+    of the flash backward, the first layer's), and the five highest
+    segments."""
+    at = max(range(len(segments)), key=lambda i: segments[i][3])
+    flash = [i for i, s in enumerate(segments)
+             if s[1] == "in" and s[0] == "_FlashBackward"]
+    top = sorted(range(len(segments)), key=lambda i: -segments[i][3])[:5]
+
+    def show(i):
+        node, where, start, peak = segments[i]
+        return {"segment": i, "node": node, "where": where,
+                "start_bytes": start, "peak_bytes": peak}
+
+    return {"segments": len(segments), "peak": show(at),
+            "last_flash_backward_segment": flash[-1] if flash else None,
+            "peak_after_blocks_backward": bool(flash) and at > flash[-1],
+            "highest_segments": [show(i) for i in top]}
+
+
+def phase_remat():
+    """GPT-2 at 1.5B width and 4 layers: one forward and backward under no
+    remat and each policy; then each once more with its backward's memory
+    read at every autograd node. Returns the kernels' launches over the
+    checked runs."""
+    import torch
+
+    from tepdist_tpu_torch.core.tree import tree_leaves
+    from tepdist_tpu_torch.models import gpt2
+    from tepdist_tpu_torch.ops import flash_attention as fa
+
+    base = _config(REMAT_LAYERS)
+    params = gpt2.stacked_init_params(base, seed=3, device="cuda")
+    tokens = gpt2.fake_batch(base, REMAT_BATCH, SEQ, seed=4, device="cuda")
+    leaves = [p.requires_grad_() for p in tree_leaves(params)]
+
+    def policy_cfg(policy):
+        return dataclasses.replace(base, remat=policy is not None,
+                                   remat_policy=policy or "full")
+
+    def fwd_bwd(cfg, memory):
+        base_bytes = torch.cuda.memory_allocated()
+        loss = gpt2.loss_fn_stacked(params, tokens, cfg)
+        # What the forward keeps for the backward, which the policy
+        # decides, and the forward's own peak.
+        memory["kept_bytes"] = torch.cuda.memory_allocated() - base_bytes
+        memory["forward_peak_bytes"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grads = torch.autograd.grad(loss, leaves)
+        memory["backward_peak_bytes"] = torch.cuda.max_memory_allocated()
+        return loss.item(), grads
+
+    fwd_bwd(policy_cfg(None), {})   # warm-up
+    L = base.n_layer
+    rows, ref = {}, None
+    total = {n: 0 for n in KERNELS}
+    for policy in REMAT_POLICIES:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        memory = {}
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, grads = fwd_bwd(policy_cfg(policy), memory)
+        torch.cuda.synchronize()
+        launches = dict(fa.launch_counts)
+        for n in KERNELS:
+            total[n] += launches[n]
+        row = {"seconds": time.perf_counter() - t0, "loss": loss,
+               "max_memory_allocated_bytes": max(
+                   memory["forward_peak_bytes"],
+                   memory["backward_peak_bytes"]), **memory,
+               "launches": launches,
+               "expected_fwd_launches": (L if policy in (None, "save_attn")
+                                         else 2 * L)}
+        if ref is None:
+            # Kept on the host, so no policy's peak counts them.
+            ref = (loss, [g.cpu() for g in grads])
+        else:
+            rel = [((g.float() - r.to(g.device).float()).norm()
+                    / r.float().norm().clamp_min(1e-30)).item()
+                   for g, r in zip(grads, ref[1])]
+            row["loss_rel_err"] = abs(loss - ref[0]) / abs(ref[0])
+            row["grad_max_rel_l2"] = max(rel)
+        del grads
+        rows[policy or "none"] = row
+    emit({"phase": "remat", "n_layer": L, "n_embd": base.n_embd,
+          "batch": REMAT_BATCH, "seq": SEQ, "policies": rows,
+          "loss_rtol": PARITY_LOSS_RTOL, "grad_rel_l2_tol": PARITY_GRAD_RL2})
+
+    # Where each policy's step peak falls: the same forward and backward
+    # once more, with every autograd node of the backward hooked (after
+    # the checked runs, since the hooks cost host time).
+    for policy in REMAT_POLICIES:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss = gpt2.loss_fn_stacked(params, tokens, policy_cfg(policy))
+        forward_peak = torch.cuda.max_memory_allocated()
+        grads, segments = _backward_timeline(loss, leaves)
+        del loss, grads
+        timeline = _peak_of_timeline(segments)
+        emit({"phase": "remat_memory", "policy": policy or "none",
+              "forward_peak_bytes": forward_peak,
+              "checked_run_backward_peak_bytes":
+                  rows[policy or "none"]["backward_peak_bytes"],
+              **timeline})
+
+    for name, row in rows.items():
+        if row["launches"]["flash_fwd"] != row["expected_fwd_launches"]:
+            raise SystemExit(f"chip_smoke: {name} launched the forward "
+                             f"{row['launches']['flash_fwd']} times")
+        if row["launches"]["flash_dq"] != L:
+            raise SystemExit(f"chip_smoke: {name} launched dQ "
+                             f"{row['launches']['flash_dq']} times")
+        if name != "none" and not (
+                row["loss_rel_err"] <= PARITY_LOSS_RTOL
+                and row["grad_max_rel_l2"] <= PARITY_GRAD_RL2):
+            raise SystemExit(f"chip_smoke: {name} grads disagree with no "
+                             "remat's")
+    # What the forward keeps, and so the forward's peak, is strictly
+    # ordered by the policy. The step's peak is not: full and save_attn
+    # both peak in the first layer's block, which holds that layer's O
+    # under either policy (the remat_memory lines).
+    peak = {k: r["max_memory_allocated_bytes"] for k, r in rows.items()}
+    fwd_peak = {k: r["forward_peak_bytes"] for k, r in rows.items()}
+    kept = {k: r["kept_bytes"] for k, r in rows.items()}
+    if not (peak["none"] > peak["dots"] >= max(peak["save_attn"],
+                                               peak["full"])
+            and kept["none"] > kept["dots"] > kept["save_attn"]
+            > kept["full"]
+            and fwd_peak["none"] > fwd_peak["dots"] > fwd_peak["save_attn"]
+            > fwd_peak["full"]):
+        raise SystemExit(f"chip_smoke: memory out of order: peak {peak}, "
+                         f"forward peak {fwd_peak}, kept by the forward "
+                         f"{kept}")
+    return total
+
+
+def phase_sampling() -> None:
+    """GPT-2 1.5B greedy generation: checked in fp32, timed in bf16."""
+    import torch
+
+    from tepdist_tpu_torch.models import gpt2, sampling
+
+    cfg = dataclasses.replace(gpt2.CONFIGS["1.5B"], dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    prompt = torch.randint(0, cfg.vocab_size, (SAMPLE_BATCH, SAMPLE_PROMPT),
+                           generator=gen, device="cuda")
+    params = gpt2.init_params(cfg, seed=5, device="cuda")
+    out = sampling.sample(params, prompt, cfg, max_new_tokens=SAMPLE_NEW,
+                          greedy=True)
+    with torch.no_grad():
+        logits = gpt2.forward(params, out[:, :-1], cfg)
+    want = logits[:, SAMPLE_PROMPT - 1:].argmax(-1)
+    agree = int((want == out[:, SAMPLE_PROMPT:]).sum())
+    del params, logits
+
+    cfg16 = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    params = gpt2.init_params(cfg16, seed=5, device="cuda")
+
+    def timed(new):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sampling.sample(params, prompt, cfg16, max_new_tokens=new,
+                        greedy=True)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    timed(2)   # warm-up
+    first_s, total_s = timed(1), timed(SAMPLE_NEW)
+    n = SAMPLE_BATCH * SAMPLE_NEW
+    emit({"phase": "sampling", "model": "GPT-2 1.5B", "n_layer": cfg.n_layer,
+          "batch": SAMPLE_BATCH, "prompt": SAMPLE_PROMPT,
+          "new_tokens": SAMPLE_NEW, "check_dtype": "float32, TF32 off",
+          "positions_equal_full_forward_argmax": agree,
+          "positions": n, "timed_dtype": "bfloat16",
+          "prefill_and_first_token_seconds": first_s,
+          "generate_seconds": total_s,
+          "decode_ms_per_token": (total_s - first_s) / (SAMPLE_NEW - 1) * 1e3,
+          "tokens_per_s": n / total_s})
+    if agree != n:
+        raise SystemExit(f"chip_smoke: greedy tokens differ from the full "
+                         f"forward's argmax at {n - agree} of {n} positions")
+
+
+def phase_models() -> None:
+    """One plan_training step each of gpt_moe base-8e (bench_moe: batch 8,
+    seq 256, adamw(1e-4)) and Wide ResNet CONFIGS[0] (bench_wrn: batch 32,
+    224x224, sgd(0.1, momentum=0.9)). Proofs of the path, not
+    measurements."""
+    import torch
+
+    from tepdist_tpu_torch.models import gpt2, gpt_moe, wide_resnet
+    from tepdist_tpu_torch.optim import adamw, sgd
+    from tepdist_tpu_torch.train import plan_training
+
+    def run(name, loss_fn, opt, params, inputs, **shape):
+        torch.cuda.reset_peak_memory_stats()
+        plan = plan_training(loss_fn, opt, params, *inputs,
+                             num_micro_batches=1)
+        t0 = time.perf_counter()
+        loss = plan.step(*inputs)
+        seconds = time.perf_counter() - t0
+        emit({"phase": "models", "model": name, **shape, "loss": loss,
+              "first_step_seconds": seconds,
+              "max_memory_allocated_bytes":
+                  torch.cuda.max_memory_allocated()})
+        if not math.isfinite(loss):
+            raise SystemExit(f"chip_smoke: {name} loss {loss}")
+
+    cfg = gpt_moe.CONFIGS["base-8e"]
+    run("gpt_moe base-8e", lambda p, t: gpt_moe.loss_fn(p, t, cfg),
+        adamw(1e-4), gpt_moe.init_params(cfg, seed=0),
+        (gpt2.fake_batch(cfg.base, 8, 256, seed=0),), batch=8, seq=256)
+    wcfg = wide_resnet.CONFIGS[0]
+    run("wide_resnet 0", lambda p, x, y: wide_resnet.loss_fn(p, x, y, wcfg),
+        sgd(0.1, momentum=0.9), wide_resnet.init_params(wcfg, seed=0),
+        wide_resnet.fake_batch(wcfg, 32, 224, seed=0), batch=32, image=224)
 
 
 def main() -> int:
@@ -538,18 +979,39 @@ def main() -> int:
 
     phase_device()
     phase_build()
-    main_case = phase_kernels()
+    gpt2_case, llama_case, remat_case = phase_kernels()
     phase_parity()
-    launches = phase_slice()
+    gpt2_launches = phase_slice()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        llama_launches, save = phase_llama(workdir)
+        phase_checkpoint(save)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    del save
+    remat_launches = phase_remat()
+    phase_sampling()
+    phase_models()
     rows = []
-    for name, (source, replaces) in KERNELS.items():
-        r = main_case[name]
-        rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"],
-                     "library_ms": r["library_ms"]})
+    for shape, case, launches in (
+            ("[4*25, 1024, 64] bf16 causal (GPT-2 1.5B)", gpt2_case,
+             gpt2_launches),
+            ("[4*16, 512, 128] bf16 causal (Llama 1B)", llama_case,
+             llama_launches),
+            ("[8*25, 1024, 64] bf16 causal (GPT-2 remat phase, 5 runs)",
+             remat_case, remat_launches)):
+        for name, (source, replaces) in KERNELS.items():
+            r = case[name]
+            rows.append({"name": name, "shape": shape, "route": "cuda",
+                         "source": source, "replaces": replaces,
+                         "launches": launches[name],
+                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                         "bound_by": r["bound_by"],
+                         "library_ms": r["library_ms"]})
+            if not launches[name]:
+                raise SystemExit(f"chip_smoke: {name} was not launched on "
+                                 f"the {shape} path")
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -10,10 +10,14 @@ fp32 after the matmul, chunked cross-entropy with a zero-padded masked
 tail), so the tests can hold one against the other.
 
 Remat: ``cfg.remat`` checkpoints each block with
-``torch.utils.checkpoint(use_reentrant=False)``, which recomputes the whole
-block in backward: the JAX package's ``remat_policy="full"``. The other JAX
-policies (``dots``, ``dots_no_batch``, ``save_attn``) are not ported and
-raise.
+``torch.utils.checkpoint(use_reentrant=False)`` under the JAX package's
+``remat_policy``, as a selective-checkpoint policy (``core/remat.py``):
+``full`` recomputes the whole block in backward, ``dots`` keeps every
+matmul output, ``dots_no_batch`` those without a batch dimension, and
+``save_attn`` only the attention output. Under ``save_attn`` the flash
+path keeps the outputs of the flash forward op (``tepdist::flash_fwd``),
+so the backward launches no forward kernel; another attention keeps its
+output through the ``tepdist::attn_out`` tag, a copy.
 """
 
 from __future__ import annotations
@@ -26,8 +30,10 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from tepdist_tpu_torch.core import remat
 from tepdist_tpu_torch.core.device import resolve_device
-from tepdist_tpu_torch.ops.flash_attention import flash_attention
+from tepdist_tpu_torch.ops.flash_attention import (FLASH_FWD_OP,
+                                                   flash_attention)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +47,7 @@ class GPT2Config:
     # "einsum" (dense softmax attention) or "flash" (the port's kernels).
     attn: str = "einsum"
     remat: bool = False
-    # Only "full" is ported (see the module docstring).
+    # "full", "dots", "dots_no_batch" or "save_attn" (module docstring).
     remat_policy: str = "full"
     # Flash tile sizes, validated against T as in the JAX package; they
     # choose no CUDA tile (0 = unset).
@@ -148,6 +154,20 @@ def _einsum_attention(q, k, v):
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
 
 
+@torch.library.custom_op("tepdist::attn_out", mutates_args=())
+def _attn_out(o: torch.Tensor) -> torch.Tensor:
+    """The ``attn_out`` name of the JAX package's ``checkpoint_name``: a
+    copy of ``o`` that the ``save_attn`` policy keeps."""
+    return o.clone()
+
+
+_attn_out.register_autograd(lambda ctx, g: g)
+_ATTN_OUT_OP = torch.ops.tepdist.attn_out.default
+
+_REMAT_POLICIES = {**remat.POLICIES,
+                   "save_attn": frozenset({FLASH_FWD_OP, _ATTN_OUT_OP})}
+
+
 def attention(block, x, cfg: GPT2Config, attn_impl: Optional[Callable] = None):
     """``attn_impl(q, k, v)`` on [B, H, T, hd] overrides ``cfg.attn``."""
     B, T, D = x.shape
@@ -157,8 +177,9 @@ def attention(block, x, cfg: GPT2Config, attn_impl: Optional[Callable] = None):
     q = q.reshape(B, T, H, hd).transpose(1, 2)
     k = k.reshape(B, T, H, hd).transpose(1, 2)
     v = v.reshape(B, T, H, hd).transpose(1, 2)
+    flash = attn_impl is None and cfg.attn == "flash"
     if attn_impl is None:
-        if cfg.attn == "flash":
+        if flash:
             attn_impl = _flash_impl(cfg)
         elif cfg.attn == "einsum":
             attn_impl = _einsum_attention
@@ -166,6 +187,8 @@ def attention(block, x, cfg: GPT2Config, attn_impl: Optional[Callable] = None):
             raise ValueError(f"unknown attn {cfg.attn!r}; expected 'flash' "
                              "or 'einsum'")
     o = attn_impl(q, k, v)
+    if cfg.remat and cfg.remat_policy == "save_attn" and not flash:
+        o = _attn_out(o)
     o = o.transpose(1, 2).reshape(B, T, D)
     return o @ block["attn_proj_w"] + block["attn_proj_b"]
 
@@ -176,14 +199,12 @@ def mlp(block, x):
     return h @ block["mlp_proj_w"] + block["mlp_proj_b"]
 
 
-def _check_remat(cfg: GPT2Config) -> None:
-    if cfg.remat_policy == "full":
-        return
-    if cfg.remat_policy in ("dots", "dots_no_batch", "save_attn"):
-        raise ValueError(f"remat_policy {cfg.remat_policy!r} is not ported; "
-                         "only 'full' is")
-    raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; expected "
-                     "'full' (the port's only policy)")
+def _remat_saved(cfg: GPT2Config):
+    if cfg.remat_policy not in _REMAT_POLICIES:
+        raise ValueError(
+            f"unknown remat_policy {cfg.remat_policy!r}; expected 'full', "
+            "'dots', 'dots_no_batch', or 'save_attn'")
+    return _REMAT_POLICIES[cfg.remat_policy]
 
 
 def transformer_block(block, x, cfg: GPT2Config, attn_impl=None):
@@ -195,15 +216,12 @@ def transformer_block(block, x, cfg: GPT2Config, attn_impl=None):
 
 def _run_blocks(blocks, x, cfg: GPT2Config, attn_impl):
     """Apply each per-layer param dict in turn, each block under a
-    non-reentrant checkpoint when ``cfg.remat``."""
+    non-reentrant checkpoint with ``cfg.remat_policy`` when ``cfg.remat``."""
+    block_fn = transformer_block
     if cfg.remat:
-        _check_remat(cfg)
+        block_fn = remat.remat(transformer_block, _remat_saved(cfg))
     for block in blocks:
-        if cfg.remat:
-            x = checkpoint(transformer_block, block, x, cfg, attn_impl,
-                           use_reentrant=False)
-        else:
-            x = transformer_block(block, x, cfg, attn_impl)
+        x = block_fn(block, x, cfg, attn_impl)
     return x
 
 

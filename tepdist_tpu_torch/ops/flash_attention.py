@@ -15,6 +15,13 @@ takes flattened [BH, T, D] tensors. On a CUDA tensor it launches its kernel
 the plain PyTorch version beside it (``*_plain``), which the CPU tests use.
 The kernels mask the ragged edge themselves, so any T works and the JAX
 package's pad-to-128 and dense fallbacks have no counterpart here.
+
+The forward is also the ``torch.library`` custom op ``tepdist::flash_fwd``
+(:data:`FLASH_FWD_OP`), which the autograd ops call while a dispatch mode
+is active: a selective-checkpoint policy can name it and keep its outputs,
+so that a remat backward does not launch the forward again (GPT-2's
+``save_attn``). With no mode active they call :func:`flash_fwd` directly
+and skip the op's dispatch on the host.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from tepdist_tpu_torch.ops import _build
 
@@ -198,6 +206,16 @@ def flash_dkv(q, k, v, do, lse, delta, causal: bool, scale: float
     return dk, dv
 
 
+@torch.library.custom_op("tepdist::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, scale: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return flash_fwd(q, k, v, causal, scale)
+
+
+FLASH_FWD_OP = torch.ops.tepdist.flash_fwd.default
+
+
 # --------------------------------------------------------------------------
 # Differentiable ops
 # --------------------------------------------------------------------------
@@ -208,7 +226,8 @@ def _flat(x: torch.Tensor) -> torch.Tensor:
 
 
 def _forward(ctx, q, k, v, causal, scale):
-    o, lse = flash_fwd(q, k, v, causal, scale)
+    fwd = FLASH_FWD_OP if _get_current_dispatch_mode() is not None else flash_fwd
+    o, lse = fwd(q, k, v, causal, scale)
     ctx.save_for_backward(q, k, v, o, lse)
     ctx.causal, ctx.scale = causal, scale
     return o, lse

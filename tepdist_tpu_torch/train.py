@@ -13,7 +13,9 @@ micro count is passed explicitly (or by NUM_MICRO_BATCHES): the sync-free
 analysis that sizes it from the traced graph is not ported. The plan owns
 its state and updates it in place (the JAX plan donates its buffers
 instead): the tensors passed as ``params`` are the plan's state when they
-already lie on the device.
+already lie on the device. ``save`` and ``restore`` write and read the JAX
+package's checkpoint format by flat leaf index of ``(params, opt_state)``,
+so a plan of either package resumes from the other's checkpoint.
 """
 
 from __future__ import annotations
@@ -23,12 +25,13 @@ import time
 from typing import Callable, Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
+from tepdist_tpu_torch.core import remat
 from tepdist_tpu_torch.core.device import resolve_device
 from tepdist_tpu_torch.core.service_env import ServiceEnv
 from tepdist_tpu_torch.core.tree import tree_leaves, tree_map, tree_unflatten
 from tepdist_tpu_torch.parallel.sync_free import build_ga_step
+from tepdist_tpu_torch.runtime.checkpoint import CheckpointUtil
 
 log = logging.getLogger(__name__)
 
@@ -42,6 +45,9 @@ class TrainingPlan:
         self._params = params
         self._opt_state = opt_state
         self.device = device
+        # One CheckpointUtil per (directory, max_to_keep), so overlapping
+        # async saves serialize on its lock.
+        self._ckpt_utils = {}
 
     def step(self, *batch) -> float:
         env = ServiceEnv.get()
@@ -59,20 +65,63 @@ class TrainingPlan:
         """(params, opt_state): the live state tensors, not copies."""
         return self._params, self._opt_state
 
+    def _device_state(self):
+        """Flat state leaves, still on the device (the checkpoint writer
+        copies them to the host one variable at a time)."""
+        return tree_leaves(self.variables())
+
+    def save(self, directory: str, step: int, max_to_keep: int = 5,
+             block: bool = True):
+        """Checkpoint the training state. ``block=False`` snapshots
+        device->host now and writes on a background thread; returns an
+        AsyncSaveHandle (call .result() before shutdown)."""
+        key = (directory, max_to_keep)
+        if key not in self._ckpt_utils:
+            self._ckpt_utils[key] = CheckpointUtil(directory, max_to_keep)
+        util = self._ckpt_utils[key]
+        variables = {str(i): v for i, v in enumerate(self._device_state())}
+        if block:
+            util.save(step, variables)
+            return None
+        return util.save_async(step, variables)
+
+    def restore(self, directory: str, step: int = -1) -> int:
+        """Load a checkpoint of this package or the JAX package into the
+        plan's state; returns the step restored."""
+        data, got = CheckpointUtil(directory).restore(step)
+        self._load([data[str(i)] for i in range(len(data))])
+        return got
+
+    @torch.no_grad()
+    def _load(self, leaves) -> None:
+        """Copy host leaves into the live state tensors, in place."""
+        live = self._device_state()
+        if len(leaves) != len(live):
+            raise ValueError(f"checkpoint holds {len(leaves)} leaves, the "
+                             f"plan's state {len(live)}")
+        for dst, src in zip(live, leaves):
+            if tuple(src.shape) != tuple(dst.shape) or src.dtype != dst.dtype:
+                raise ValueError(
+                    f"checkpoint leaf {tuple(src.shape)} {src.dtype} does "
+                    f"not fit the plan's {tuple(dst.shape)} {dst.dtype}")
+            dst.copy_(src)
+
+
+_REMAT_POLICIES = {**remat.POLICIES, "true": None, "1": None}
+
 
 def _remat(loss_fn: Callable) -> Callable:
     """REMAT_POLICY knob: "full" (or "true"/"1") recomputes the whole loss
-    in backward; the JAX package's "dots" policies are not ported."""
+    in backward; "dots" keeps every matmul output and "dots_no_batch"
+    those without a batch dimension. Another value is ignored with a
+    warning, as in the JAX package."""
     policy = ServiceEnv.get().remat_policy
     if not policy or policy == "none":
         return loss_fn
-    if policy not in ("full", "true", "1"):
-        raise ValueError(f"REMAT_POLICY {policy!r} is not ported; expected "
-                         "'none' or 'full'")
-
-    def remat_loss(p, *b):
-        return checkpoint(loss_fn, p, *b, use_reentrant=False)
-    return remat_loss
+    if policy not in _REMAT_POLICIES:
+        log.warning("unknown REMAT_POLICY %r ignored", policy)
+        return loss_fn
+    return remat.remat(loss_fn, _REMAT_POLICIES[policy])
 
 
 def plan_training(

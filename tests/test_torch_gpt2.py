@@ -141,9 +141,117 @@ def test_stacked_equals_unrolled():
         np.testing.assert_allclose(a, b, atol=1e-6, rtol=1e-5)
 
 
-@pytest.mark.parametrize("policy", ["dots", "dots_no_batch", "save_attn",
-                                    "bogus"])
+REMAT_POLICIES = ["full", "dots", "dots_no_batch", "save_attn"]
+
+
+@pytest.fixture(scope="module")
+def no_remat_reference():
+    """JAX loss and grads with no remat, the common reference of the
+    policy cases, and the inputs they share."""
+    cfg_j, _ = _cfgs()
+    cfg_j = dataclasses.replace(cfg_j, remat=False)
+    params = jax.device_get(jgpt2.init_params(cfg_j, jax.random.PRNGKey(0)))
+    toks = _batch(cfg_j)
+    return params, toks, _jax_value_and_grad(jgpt2.loss_fn, params, toks,
+                                             cfg_j)
+
+
+@pytest.mark.parametrize("policy", REMAT_POLICIES)
+def test_remat_policy_matches_jax(policy, no_remat_reference):
+    """Each policy changes what is kept, not what is computed: loss and
+    grads equal the JAX package's under the same policy and the no-remat
+    run, at the fp32 tolerances above."""
+    params, toks, (l_none, g_none) = no_remat_reference
+    cfg_j, cfg_t = _cfgs()
+    cfg_j = dataclasses.replace(cfg_j, remat_policy=policy)
+    cfg_t = dataclasses.replace(cfg_t, remat_policy=policy)
+    l_ref, g_ref = _jax_value_and_grad(jgpt2.loss_fn, params, toks, cfg_j)
+    l_got, g_got = _torch_value_and_grad(
+        tgpt2.loss_fn, convert.to_torch(params, device="cpu"),
+        torch.tensor(np.asarray(toks)), cfg_t)
+    for want_l, want_g in ((l_ref, g_ref), (l_none, g_none)):
+        np.testing.assert_allclose(l_got, want_l, rtol=1e-5)
+        for a, b in zip(g_got, want_g):
+            np.testing.assert_allclose(a, b, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("policy,per_layer,op_per_layer", [
+    (None, 1, 0), ("full", 2, 0), ("dots", 2, 2), ("dots_no_batch", 2, 2),
+    ("save_attn", 1, 2)])
+def test_flash_forward_runs_per_policy(policy, per_layer, op_per_layer,
+                                       monkeypatch):
+    """The flash forward runs once per layer in forward, and again in the
+    backward's recompute unless the policy keeps its output: under
+    ``save_attn`` a step runs it L times, not 2L. The autograd op goes
+    through the ``tepdist::flash_fwd`` custom op only inside a selective
+    checkpoint (forward and recompute), and calls the wrapper directly
+    under no remat and ``full``."""
+    from tepdist_tpu_torch.ops import flash_attention as tfa
+
+    calls, op_calls = [], []
+    plain, op = tfa.flash_fwd, tfa.FLASH_FWD_OP
+    monkeypatch.setattr(tfa, "flash_fwd",
+                        lambda *a: calls.append(1) or plain(*a))
+    monkeypatch.setattr(tfa, "FLASH_FWD_OP",
+                        lambda *a: op_calls.append(1) or op(*a))
+    cfg = dataclasses.replace(tgpt2.CONFIGS["test"],
+                              **{**FLASH, "remat": policy is not None},
+                              remat_policy=policy or "full")
+    params = tgpt2.init_params(cfg, device="cpu")
+    toks = tgpt2.fake_batch(cfg, 2, 16, device="cpu")
+    loss, _ = _torch_value_and_grad(tgpt2.loss_fn, params, toks, cfg)
+    assert np.isfinite(loss)
+    assert len(calls) == per_layer * cfg.n_layer
+    assert len(op_calls) == op_per_layer * cfg.n_layer
+
+
+class _CountOps(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts the dispatches of each op. Outside a checkpoint it sees an
+    op the backward recomputes twice and an op whose output a policy keeps
+    once (the policy's cache answers the recompute)."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.counts[func] = self.counts.get(func, 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+def test_policies_keep_what_they_name():
+    """Einsum attention, one step of forward and backward: ``dots`` runs
+    as many mm and bmm as no remat (it keeps them all), ``dots_no_batch``
+    as many mm but more bmm, ``full`` more of both; ``save_attn`` runs its
+    ``attn_out`` tag once per layer (kept, not recomputed)."""
+    aten = torch.ops.aten
+    cfg = dataclasses.replace(tgpt2.CONFIGS["test"],
+                              **{**FLASH, "attn": "einsum"})
+    params = tgpt2.init_params(cfg, device="cpu")
+    toks = tgpt2.fake_batch(cfg, 2, 16, device="cpu")
+
+    def counts(policy):
+        c = dataclasses.replace(cfg, remat=policy is not None,
+                                remat_policy=policy or "full")
+        with _CountOps() as mode:
+            _torch_value_and_grad(tgpt2.loss_fn, params, toks, c)
+        return mode.counts
+
+    none, dots, nobatch, full, attn = (counts(p) for p in (
+        None, "dots", "dots_no_batch", "full", "save_attn"))
+    mm, bmm = aten.mm.default, aten.bmm.default
+    assert dots[mm] == none[mm] and dots[bmm] == none[bmm]
+    assert nobatch[mm] == none[mm] and nobatch[bmm] > none[bmm]
+    assert full[mm] > none[mm] and full[bmm] > none[bmm]
+    assert attn[torch.ops.tepdist.attn_out.default] == cfg.n_layer
+    assert torch.ops.tepdist.attn_out.default not in full
+
+
+@pytest.mark.parametrize("policy", ["bogus"])
 def test_unported_remat_policy_raises(policy):
+    """A policy the JAX package does not have raises, as it does there
+    (the dots, dots_no_batch and save_attn cases became the parity cases
+    above when those policies were ported)."""
     cfg = dataclasses.replace(tgpt2.CONFIGS["test"], remat_policy=policy,
                               **FLASH)
     params = tgpt2.init_params(cfg, device="cpu")

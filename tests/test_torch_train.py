@@ -179,3 +179,37 @@ def test_plan_training_defaults_to_the_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         plan_training(lambda p, t: tgpt2.loss_fn(p, t, cfg), adamw_bf16(LR),
                       params, num_micro_batches=2)
+
+
+@pytest.mark.parametrize("policy", ["full", "dots", "dots_no_batch",
+                                    "bogus"])
+def test_remat_policy_knob(policy, caplog):
+    """REMAT_POLICY wraps the loss in the named checkpoint policy, which
+    changes no value (losses and params as without it, fp32 rtol 1e-6);
+    an unknown value is ignored with a warning, as in the JAX package."""
+    from tepdist_tpu_torch.core.service_env import ServiceEnv
+
+    cfg = dataclasses.replace(tgpt2.CONFIGS["test"], attn="flash")
+    params = tgpt2.init_params(cfg, seed=0, device="cpu")
+    toks = tgpt2.fake_batch(cfg, 4, 16, seed=0, device="cpu")
+
+    def run():
+        plan = plan_training(
+            lambda p, t: tgpt2.loss_fn(p, t, cfg), adamw_bf16(LR),
+            tree_map(torch.clone, params), toks, num_micro_batches=2,
+            device="cpu")
+        return ([plan.step(toks) for _ in range(2)],
+                tree_leaves(plan.variables()[0]))
+
+    want_l, want_p = run()
+    try:
+        ServiceEnv.reset({"REMAT_POLICY": policy})
+        with caplog.at_level("WARNING"):
+            got_l, got_p = run()
+    finally:
+        ServiceEnv.reset()
+    np.testing.assert_allclose(got_l, want_l, rtol=1e-6)
+    for a, b in zip(got_p, want_p):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6,
+                                   atol=1e-7)
+    assert ("unknown REMAT_POLICY" in caplog.text) == (policy == "bogus")
