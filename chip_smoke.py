@@ -46,7 +46,18 @@ calls (``plan_training`` + ``plan.step``, ``plan.save``/``restore``,
    greedy tokens after 8 prompts of 64 must equal the argmax of the full
    forward at every generated position; the same generation timed in bf16;
 10. models: one ``plan_training`` step each of gpt_moe ``base-8e`` and Wide
-   ResNet ``CONFIGS[0]`` (bench.py's recipes), with finite losses.
+   ResNet ``CONFIGS[0]`` (bench.py's recipes), with finite losses;
+11. telemetry (after the build): the telemetry core's native rings, built
+   beside the kernels, must have loaded; ns per enabled span and per
+   counter increment over 10^5 calls;
+12. serving: GPT-2 1.5B at full width and depth through the paged
+   ``ServingEngine`` (chunked prefill, prefix cache, a cancel, a sampled
+   request): fp32 tokens equal to ``sample()`` and to a slot-mode engine,
+   then a timed bf16 run (statuses, zero pages after drain, prefix hits,
+   the TTFT histogram's count, no flash launch; its trace is written to
+   ``chiprun_out/serving_trace.json``), then the ``ServingSupervisor``
+   at 8 layers restarting once on an injected decode fault and delivering
+   every request exactly once with the uninterrupted run's tokens.
 
 Then one ``{"kernels": [...]}`` line (a row for each kernel at each
 path's shape) and, last, the ``{"ok": true, ...}`` line. Any failed check
@@ -178,10 +189,30 @@ def phase_device():
 
 
 def phase_build():
+    """The three CUDA kernels with nvcc, one process each, and beside them
+    the telemetry core's native rings (``telemetry/_fastobs.c``) with the
+    host compiler; a failed build of either fails the run."""
+    import threading
+
     from tepdist_tpu_torch.ops import _build
+    from tepdist_tpu_torch.telemetry import _fastobs
+
+    fastobs = {}
+
+    def build_fastobs():
+        t = time.perf_counter()
+        fastobs["loaded"] = _fastobs.load() is not None
+        fastobs["seconds"] = time.perf_counter() - t
 
     t0 = time.perf_counter()
+    host = threading.Thread(target=build_fastobs)
+    host.start()
     seconds = _build.build(KERNELS)
+    host.join()
+    if not fastobs["loaded"]:
+        raise SystemExit("chip_smoke: telemetry/_fastobs.c did not build "
+                         "or load (the warning above says why)")
+    seconds["_fastobs"] = fastobs["seconds"]
     ptxas = {}
     for name in KERNELS:
         log = _build.library_path(name).with_suffix(".so.log")
@@ -484,7 +515,7 @@ def phase_slice():
         raise SystemExit(f"chip_smoke: loss did not fall {losses}")
     if any(step != want for step in per_step):
         raise SystemExit(f"chip_smoke: launches {per_step} != {want}")
-    _profile_step("GPT-2 1.5B", plan, tokens,
+    _profile_step("GPT-2 1.5B", lambda: plan.step(tokens),
                   sorted(steady)[len(steady) // 2])
     return launches
 
@@ -507,22 +538,23 @@ def _is_device_activity(event) -> bool:
             and not getattr(event, "is_user_annotation", False))
 
 
-def _profile_step(model: str, plan, tokens, step_s: float) -> None:
-    """One more step, after the checked ones, under ``torch.profiler``
-    (CPU and CUDA activities): device time by kernel name (top 15) and by
-    kind, the device's busy share of the profiled step (whose host work
-    the profiler slows) and the device time over ``step_s``, the median
-    unprofiled step, and the flash kernels' summed time with their inputs
-    as the step leaves them (cold from the QKV matmul, where the kernels
-    phase times them warm in L2). A measurement, not a check: a profiler
-    that records no device time is reported and the run goes on."""
+def _profile_step(model: str, step, step_s) -> None:
+    """One more step (``step()``), after the checked ones, under
+    ``torch.profiler`` (CPU and CUDA activities): device time by kernel
+    name (top 15) and by kind, the device's busy share of the profiled
+    step (whose host work the profiler slows) and the device time over
+    ``step_s``, the median unprofiled step (when given), and the flash
+    kernels' summed time with their inputs as the step leaves them (cold
+    from the QKV matmul, where the kernels phase times them warm in L2). A
+    measurement, not a check: a profiler that records no device time is
+    reported and the run goes on."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     label = "chip_smoke_step"
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with record_function(label):
-            plan.step(tokens)
+            step()
     events = prof.events()
     window = next(e for e in events if e.name == label
                   and not _is_device_activity(e))
@@ -567,7 +599,8 @@ def _profile_step(model: str, plan, tokens, step_s: float) -> None:
           "window_ms": (w1 - w0) / 1e3,
           "device_ms": device_ms,
           "device_busy_share": busy_us / (w1 - w0),
-          "device_ms_over_median_step": device_ms / (step_s * 1e3),
+          "device_ms_over_median_step":
+              device_ms / (step_s * 1e3) if step_s else None,
           "flash_kernels": flash, "groups": groups,
           "top_kernels": [{"name": n[:160], "ms": r[0], "launches": r[1]}
                           for n, r in top]})
@@ -661,7 +694,7 @@ def phase_llama(workdir: str):
         raise SystemExit(f"chip_smoke: Llama loss did not fall {losses}")
     if any(step != want for step in per_step):
         raise SystemExit(f"chip_smoke: Llama launches {per_step} != {want}")
-    _profile_step("Llama 1B", plan, save["batch"],
+    _profile_step("Llama 1B", lambda: plan.step(save["batch"]),
                   sorted(steady)[len(steady) // 2])
     save["cfg"], save["dir"] = cfg, ckpt_dir
     return launches, save
@@ -966,6 +999,400 @@ def phase_models() -> None:
         wide_resnet.fake_batch(wcfg, 32, 224, seed=0), batch=32, image=224)
 
 
+# Serving phase: GPT-2 1.5B through the paged engine (page 16, max_len
+# 1024, prefix cache, 256-token prefill chunks, an 8e9-byte pool budget).
+# 16 requests, prompts of 64-512 tokens drawn from SERVE_SEED, 32 new tokens
+# each; requests 0 and 9-15 open with one 256-token prefix. Requests 8-15
+# are submitted once 0-7 have their first token, request 3 is cancelled
+# after its 8th token and request 5 samples (temperature 0.8, top-k 50).
+SERVE_REQUESTS, SERVE_NEW, SERVE_PREFIX, SERVE_SEED = 16, 32, 256, 11
+SERVE_PROMPT = (64, 512)
+SERVE_PREFIXED = (0, 9, 10, 11, 12, 13, 14, 15)
+SERVE_CANCEL, SERVE_CANCEL_AT, SERVE_SAMPLED = 3, 8, 5
+# The bf16 run's 20th scheduler step (a decode step of the full batch, all
+# prefills done) runs under the profiler.
+SERVE_PROFILE_AT = 20
+SERVE_ENGINE = dict(page_size=16, max_len=1024, prefix_cache=True,
+                    prefill_chunk=256, hbm_budget_bytes=8e9)
+# Supervisor check: the same schedule at full width and 8 layers, with a
+# decode fault injected at the 10th decode step.
+SUPERVISOR_LAYERS = 8
+SUPERVISOR_FAULT = "serve_fault:op=decode,step=10,ti=0"
+TELEMETRY_CALLS = 100_000
+OUT_DIR = "chiprun_out"
+
+
+def phase_telemetry() -> None:
+    """The port's telemetry core on the card's host: the native rings must
+    have loaded (the build phase built them); the ns per enabled span and
+    per counter increment are measurements."""
+    from tepdist_tpu_torch import telemetry
+    from tepdist_tpu_torch.telemetry import _fastobs
+
+    tracer = telemetry.configure(enabled=True)
+    native = _fastobs.available() and tracer._core is not None
+    span, n = telemetry.span, TELEMETRY_CALLS
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        pass
+    loop_ns = (time.perf_counter_ns() - t0) / n
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        with span("bench:span", cat="bench"):
+            pass
+    span_ns = (time.perf_counter_ns() - t0) / n
+    counter = telemetry.metrics().counter("bench_counter")
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        counter.inc()
+    counter_ns = (time.perf_counter_ns() - t0) / n
+    tracer.clear()
+    telemetry.metrics().reset()
+    emit({"phase": "telemetry", "native_rings": native, "calls": n,
+          "ns_per_enabled_span": span_ns, "ns_per_counter_inc": counter_ns,
+          "ns_per_empty_loop_iteration": loop_ns})
+    if not native:
+        raise SystemExit("chip_smoke: the native telemetry rings did not "
+                         "load")
+
+
+def _serve_schedule(vocab: int):
+    """The serving phase's 16 requests (see SERVE_*), from SERVE_SEED."""
+    import numpy as np
+
+    rng = np.random.default_rng(SERVE_SEED)
+    prefix = rng.integers(0, vocab, SERVE_PREFIX)
+    out = []
+    for i in range(SERVE_REQUESTS):
+        if i in SERVE_PREFIXED:
+            n = int(rng.integers(SERVE_PREFIX + 16, SERVE_PROMPT[1] + 1))
+            prompt = np.concatenate(
+                [prefix, rng.integers(0, vocab, n - SERVE_PREFIX)])
+        else:
+            n = int(rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1))
+            prompt = rng.integers(0, vocab, n)
+        sampled = i == SERVE_SAMPLED
+        out.append({"rid": f"r{i}", "prompt": prompt.astype(np.int32),
+                    "wave": int(i >= SERVE_REQUESTS // 2),
+                    "kw": dict(max_new_tokens=SERVE_NEW, greedy=not sampled,
+                               temperature=0.8 if sampled else 1.0,
+                               top_k=50 if sampled else 0,
+                               seed=1234 if sampled else 0)})
+    return out
+
+
+def _drive(server, schedule, has_work, profile_at=None) -> dict:
+    """Run ``schedule`` through an engine or supervisor in lockstep: the
+    second wave is submitted once the first has its first tokens, and the
+    cancel lands after its SERVE_CANCEL_AT-th token. Host-clock TTFT is
+    read after each scheduler step. Scheduler step ``profile_at`` runs
+    under the profiler (a measurement; it leaves the schedule as is)."""
+    t_sub, ttft, waves = {}, {}, {0: False, 1: False}
+    cancel_rid = f"r{SERVE_CANCEL}"
+    cancelled, steps, peak_pages = False, 0, 0
+
+    def submit(wave):
+        waves[wave] = True
+        for r in schedule:
+            if r["wave"] == wave:
+                t_sub[r["rid"]] = time.perf_counter()
+                out = server.submit(r["rid"], r["prompt"], **r["kw"])
+                if out["status"] != "queued":
+                    raise SystemExit(f"chip_smoke: {r['rid']} not queued: "
+                                     f"{out}")
+
+    submit(0)
+    t0 = time.perf_counter()
+    while True:
+        if not has_work():
+            if waves[1]:
+                break
+            submit(1)
+        if steps + 1 == profile_at:
+            _profile_step("GPT-2 1.5B serving, scheduler step "
+                          f"{profile_at}", server.step, None)
+        else:
+            server.step()
+        steps += 1
+        now = time.perf_counter()
+        res = {r["request_id"]: r for r in server.poll()}
+        for rid, r in res.items():
+            if r["n_tokens"] and rid not in ttft:
+                ttft[rid] = (now - t_sub[rid]) * 1e3
+        peak_pages = max(peak_pages, server.stats().get("pages_used", 0))
+        if not waves[1] and all(res[r["rid"]]["n_tokens"]
+                                for r in schedule if r["wave"] == 0):
+            submit(1)
+        if not cancelled and res[cancel_rid]["n_tokens"] >= SERVE_CANCEL_AT:
+            cancelled = server.cancel(cancel_rid)
+        if steps > 20 * SERVE_REQUESTS * SERVE_NEW:
+            raise SystemExit("chip_smoke: the serving schedule did not end")
+    wall = time.perf_counter() - t0
+    return {"results": {r["request_id"]: r for r in server.poll()},
+            "host_ttft_ms": ttft, "steps": steps, "wall_s": wall,
+            "peak_pages": peak_pages}
+
+
+def _check_statuses(run: dict, label: str) -> None:
+    """Every request ends as the schedule implies: the cancelled one with
+    SERVE_CANCEL_AT tokens (one more when a supervisor replay's first
+    token and first decode land in one step), every other one done with
+    SERVE_NEW tokens."""
+    for rid, r in run["results"].items():
+        if rid == f"r{SERVE_CANCEL}":
+            ok = (r["status"] == "cancelled"
+                  and SERVE_CANCEL_AT <= r["n_tokens"] <= SERVE_CANCEL_AT + 1)
+        else:
+            ok = r["status"] == "done" and r["n_tokens"] == SERVE_NEW
+        if not ok:
+            raise SystemExit(f"chip_smoke: {label}: {rid} ended "
+                             f"{r['status']} with {r['n_tokens']} tokens")
+    if len(run["results"]) != SERVE_REQUESTS:
+        raise SystemExit(f"chip_smoke: {label}: {len(run['results'])} "
+                         f"results for {SERVE_REQUESTS} requests")
+
+
+def _sample_reference(params, cfg, schedule, run) -> int:
+    """Requests whose tokens differ from the port's ``sample()`` on their
+    prompt alone (the sampled one with a generator seeded as the engine
+    seeds it); a cancelled request is held over the tokens it got."""
+    import torch
+
+    from tepdist_tpu_torch.models import sampling
+
+    bad = 0
+    for r in schedule:
+        got = run["results"][r["rid"]]["tokens"]
+        kw = r["kw"]
+        gen = None
+        if not kw["greedy"]:
+            gen = torch.Generator(device="cuda").manual_seed(kw["seed"])
+        prompt = torch.as_tensor(r["prompt"], device="cuda").long()[None]
+        want = sampling.sample(
+            params, prompt, cfg, max_new_tokens=len(got),
+            greedy=kw["greedy"], temperature=kw["temperature"],
+            top_k=kw["top_k"], generator=gen)[0, prompt.shape[1]:]
+        bad += want.tolist() != got
+    return bad
+
+
+def _tokens_differ(a: dict, b: dict) -> list:
+    """Rids whose token lists differ between two runs' results (over the
+    shorter list where one run cancelled a step later)."""
+    out = []
+    for rid in a:
+        x, y = a[rid]["tokens"], b[rid]["tokens"]
+        n = min(len(x), len(y))
+        if x[:n] != y[:n]:
+            out.append(rid)
+    return out
+
+
+def _quantiles(values) -> dict:
+    v = sorted(values)
+    if not v:
+        return {"p50": None, "p99": None, "n": 0}
+    return {"p50": v[len(v) // 2],
+            "p99": v[min(len(v) - 1, int(round(0.99 * (len(v) - 1))))],
+            "n": len(v)}
+
+
+def phase_serving() -> None:
+    """GPT-2 1.5B at full width and depth served through the paged
+    ``ServingEngine`` (module comment at SERVE_*): in fp32 with TF32 off,
+    every request's tokens equal ``sample()`` on its prompt alone and a
+    slot-mode engine's on the same schedule; in bf16, statuses, zero pages
+    after drain, the prefix hits, the TTFT histogram's count and no flash
+    launch are checked and the run is timed; then the supervisor replays a
+    decode fault at 8 layers exactly once."""
+    import torch
+
+    from tepdist_tpu_torch import telemetry
+    from tepdist_tpu_torch.models import gpt2
+    from tepdist_tpu_torch.ops import flash_attention as fa
+    from tepdist_tpu_torch.runtime import faults
+    from tepdist_tpu_torch.serving import ServingEngine, ServingSupervisor
+    from tepdist_tpu_torch.telemetry import flight
+
+    smi = nvidia_smi()
+    base = gpt2.CONFIGS["1.5B"]
+    schedule = _serve_schedule(base.vocab_size)
+    cfg32 = dataclasses.replace(base, dtype=torch.float32)
+
+    def counters():
+        return telemetry.metrics().snapshot()["counters"]
+
+    # fp32: paged engine against sample() and against the slot engine.
+    params = gpt2.init_params(cfg32, seed=21, device="cuda")
+    t0 = time.perf_counter()
+    eng = ServingEngine(params, cfg32, kv_mode="paged", **SERVE_ENGINE)
+    paged = _drive(eng, schedule, eng._has_work)
+    _check_statuses(paged, "fp32 paged")
+    hits32 = counters().get("prefix_hits", 0)
+    del eng
+    slot_eng = ServingEngine(params, cfg32, kv_mode="slots",
+                             slots=SERVE_REQUESTS,
+                             max_len=SERVE_ENGINE["max_len"])
+    slots = _drive(slot_eng, schedule, slot_eng._has_work)
+    del slot_eng
+    vs_slots = _tokens_differ(paged["results"], slots["results"])
+    vs_sample = _sample_reference(params, cfg32, schedule, paged)
+    fp32_s = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+
+    # bf16: the timed run, traced.
+    params = gpt2.init_params(base, seed=21, device="cuda")
+    tracer = telemetry.configure(enabled=True, capacity=1 << 16)
+    tracer.clear()
+    telemetry.metrics().reset()
+    fa.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(params, base, kv_mode="paged", **SERVE_ENGINE)
+    run = _drive(eng, schedule, eng._has_work, profile_at=SERVE_PROFILE_AT)
+    torch.cuda.synchronize()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    flash = dict(fa.launch_counts)
+    eng.drain(wait_ms=0)
+    st = eng.stats()
+    snap = telemetry.metrics().snapshot()
+    spans = tracer.snapshot()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    trace_path = os.path.join(OUT_DIR, "serving_trace.json")
+    telemetry.write_trace(telemetry.build_trace(
+        [{"pid": 0, "label": "serving", "spans": spans,
+          "metrics": snap, "spans_dropped": tracer.dropped}]), trace_path)
+    telemetry.configure(enabled=False)
+    _check_statuses(run, "bf16 paged")
+    decode_ms = {}
+    for sp in spans:
+        if sp["name"] == "serve:decode":
+            decode_ms.setdefault(sp["args"]["batch"], []).append(
+                sp["dur"] / 1e3)
+    chunk_ms = _time_chunk(eng)
+    del eng
+    n_first = sum(1 for r in run["results"].values() if r["n_tokens"])
+    hist = snap["histograms"].get("serve_ttft_ms", {})
+    c = snap["counters"]
+    tokens = sum(r["n_tokens"] for r in run["results"].values())
+    emit({"phase": "serving", "model": "GPT-2 1.5B",
+          "n_layer": base.n_layer, "nvidia_smi": smi,
+          "requests": SERVE_REQUESTS, "new_tokens": SERVE_NEW,
+          "engine": SERVE_ENGINE, "pages": st["pages"],
+          "check_dtype": "float32, TF32 off",
+          "fp32_requests_differing_from_sample": vs_sample,
+          "fp32_requests_differing_from_slots": vs_slots,
+          "fp32_prefix_hits": hits32, "fp32_seconds": fp32_s,
+          "timed_dtype": "bfloat16",
+          "statuses": {k: r["status"] for k, r in run["results"].items()},
+          "scheduler_steps": run["steps"], "wall_seconds": run["wall_s"],
+          "tokens": tokens, "tokens_per_s": tokens / run["wall_s"],
+          "ttft_ms_histogram": {"p50": hist.get("p50"),
+                                "p99": hist.get("p99"),
+                                "count": hist.get("count")},
+          "ttft_ms_host": _quantiles(run["host_ttft_ms"].values()),
+          "decode_step_ms_by_batch": {
+              b: _quantiles(v) for b, v in sorted(decode_ms.items())},
+          "prefill_ms_per_256_chunk": chunk_ms,
+          "max_memory_allocated_bytes": peak_bytes,
+          "peak_pages_used": run["peak_pages"],
+          "serve_compiles": c.get("serve_compiles", 0),
+          "prefix_hits": c.get("prefix_hits", 0),
+          "prefix_hit_tokens": c.get("prefix_hit_tokens", 0),
+          "serve_prefill_tokens": c.get("serve_prefill_tokens", 0),
+          "pages_used_after_drain": st["pages_used"],
+          "page_refs_after_drain": st["page_refs"],
+          "flash_launches": flash, "trace": trace_path,
+          "trace_spans": len(spans), "trace_spans_dropped": tracer.dropped})
+    if vs_sample or vs_slots:
+        raise SystemExit(f"chip_smoke: fp32 serving differs from sample() "
+                         f"in {vs_sample} requests, from slot mode in "
+                         f"{vs_slots}")
+    if st["pages_used"] or st["page_refs"]:
+        raise SystemExit(f"chip_smoke: pages left after drain: {st}")
+    hits = min(hits32, c.get("prefix_hits", 0))
+    if hits < len(SERVE_PREFIXED) - 1:
+        raise SystemExit(f"chip_smoke: {hits} prefix hits, want "
+                         f">= {len(SERVE_PREFIXED) - 1}")
+    if hist.get("count") != n_first:
+        raise SystemExit(f"chip_smoke: serve_ttft_ms counted "
+                         f"{hist.get('count')}, {n_first} first tokens")
+    if any(flash.values()):
+        raise SystemExit(f"chip_smoke: serving launched flash kernels "
+                         f"{flash}")
+    del params
+    torch.cuda.empty_cache()
+
+    # Supervisor: a decode fault at 8 layers, replayed exactly once.
+    cfg8 = dataclasses.replace(cfg32, n_layer=SUPERVISOR_LAYERS)
+    params = gpt2.init_params(cfg8, seed=21, device="cuda")
+    eng = ServingEngine(params, cfg8, kv_mode="paged", **SERVE_ENGINE)
+    clean = _drive(eng, schedule, eng._has_work)
+    del eng
+    sup = ServingSupervisor(params, cfg8, task_index=0, kv_mode="paged",
+                            max_restarts=3, **SERVE_ENGINE)
+    flight.recorder().snapshot(clear=True)
+    before = counters()
+    faults.configure(SUPERVISOR_FAULT)
+    try:
+        faulted = _drive(sup, schedule, lambda: sup.engine._has_work())
+    finally:
+        faults.configure(None)
+    after = counters()
+    delivered = {}
+    for ev in flight.recorder().snapshot()["events"]:
+        if ev["ev"] == "deliver":
+            delivered[ev["rid"]] = delivered.get(ev["rid"], 0) + 1
+    done = sum(r["status"] == "done" for r in faulted["results"].values())
+    completed = (after.get("serve_requests_completed", 0)
+                 - before.get("serve_requests_completed", 0))
+    injected = (after.get("fault_injected:serve_fault", 0)
+                - before.get("fault_injected:serve_fault", 0))
+    differ = _tokens_differ(faulted["results"], clean["results"])
+    emit({"phase": "serving_supervisor", "n_layer": SUPERVISOR_LAYERS,
+          "dtype": "float32, TF32 off", "fault": SUPERVISOR_FAULT,
+          "faults_injected": injected, "restarts": sup.restarts,
+          "deliveries": delivered, "completed": completed, "done": done,
+          "requests_differing_from_uninterrupted": differ,
+          "statuses": {k: r["status"]
+                       for k, r in faulted["results"].items()}})
+    _check_statuses(faulted, "supervisor")
+    if injected != 1 or sup.restarts != 1:
+        raise SystemExit(f"chip_smoke: supervisor restarted "
+                         f"{sup.restarts} times on {injected} faults, "
+                         f"want 1 and 1")
+    if (sorted(delivered) != sorted(faulted["results"])
+            or set(delivered.values()) != {1} or completed != done):
+        raise SystemExit(f"chip_smoke: not delivered exactly once: "
+                         f"{delivered}, completed {completed} of {done}")
+    if differ:
+        raise SystemExit(f"chip_smoke: supervised tokens differ from the "
+                         f"uninterrupted run in {differ}")
+    del sup, params
+    torch.cuda.empty_cache()
+
+
+def _time_chunk(eng) -> dict:
+    """Device ms of one 256-token prefill chunk of the bf16 engine (chunk
+    executable plus page insert), with no history and with 256 tokens of
+    history, on pages attached and released here."""
+    import numpy as np
+
+    C = SERVE_ENGINE["prefill_chunk"]
+    prompt = np.arange(2 * C, dtype=np.int32) % eng.model.cfg.vocab_size
+    table, _ = eng.model.attach(prompt, 1)
+    eng.model.extend_table(table, 2 * C)
+    out = {}
+    for start in (0, C):
+        def run(start=start):
+            eng.model.prefill_chunk(table.pages, prompt, start, start + C)
+        ms, spread = cuda_ms(run, iters=5, warmup=2, windows=3)
+        out[f"history_{start}"] = {"ms": ms, "spread": spread}
+    eng.model.release_table(table)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -979,6 +1406,7 @@ def main() -> int:
 
     phase_device()
     phase_build()
+    phase_telemetry()
     gpt2_case, llama_case, remat_case = phase_kernels()
     phase_parity()
     gpt2_launches = phase_slice()
@@ -992,6 +1420,7 @@ def main() -> int:
     remat_launches = phase_remat()
     phase_sampling()
     phase_models()
+    phase_serving()
     rows = []
     for shape, case, launches in (
             ("[4*25, 1024, 64] bf16 causal (GPT-2 1.5B)", gpt2_case,

@@ -6,7 +6,9 @@ A second package beside the JAX one, module for module: ``train.py``
 format), ``optim.py`` (``sgd``, ``adam``, ``adamw``, ``adamw_bf16``),
 ``models/`` (``gpt2``, ``llama``, ``gpt_moe``, ``wide_resnet``, ``mlp`` and
 ``sampling.sample``), ``data/`` (token files and the device prefetcher),
-``parallel/sync_free.py`` and ``core/``; ``ops/flash_attention.py`` runs
+``parallel/sync_free.py``, ``core/``, ``telemetry/`` (the JAX package's
+telemetry core) and ``serving/`` (one engine: paged KV cache, chunked
+prefill, prefix cache and the supervisor); ``ops/flash_attention.py`` runs
 attention on kernels written by hand for Hopper (``csrc/``). It imports
 ``torch`` and never ``jax`` or ``tepdist_tpu``. Entry points run on the
 card (``device="cuda"``) and raise without one; the CPU is used only when
@@ -32,6 +34,13 @@ _LAZY = {
                         "flash_attention"),
     "flash_attention_with_lse": ("tepdist_tpu_torch.ops.flash_attention",
                                  "flash_attention_with_lse"),
+    "ServingEngine": ("tepdist_tpu_torch.serving.engine", "ServingEngine"),
+    "ServingSupervisor": ("tepdist_tpu_torch.serving.supervisor",
+                          "ServingSupervisor"),
+    "PagedServableModel": ("tepdist_tpu_torch.serving.paged_kv",
+                           "PagedServableModel"),
+    "ServableModel": ("tepdist_tpu_torch.serving.kv_cache",
+                      "ServableModel"),
 }
 # Model modules: tepdist_tpu_torch.llama is models/llama.py, and so on.
 _MODELS = ("gpt2", "llama", "gpt_moe", "wide_resnet", "mlp", "sampling")

@@ -1,0 +1,376 @@
+"""Schedule fidelity: join predicted task timelines with measured spans.
+
+Reference parity: NONE — the reference never checks its cost model
+against an execution. This module makes prediction-vs-reality a
+permanent observability surface (the analysis tools/
+fleet_overhead_probe.py once did by hand):
+
+* ``join_timelines`` — exact per-task join of the simulator's
+  ``ScheduleResult.predicted_timeline()`` (runtime/task_scheduler.py)
+  with measured spans tagged ``task=<id>`` by the worker plan runner
+  (rpc/worker_plan.py) and the local executor (runtime/executor.py).
+* ``drift_by_kind`` — per-kind (compute/ar/send/recv/ga/...)
+  predicted-vs-measured drift from the join.
+* ``timeline_critical_path`` — latest-finishing-predecessor walk that
+  works on either timeline (predicted or measured), so the simulated
+  and the real critical path are computed by the same algorithm.
+* ``attribution`` — per-worker partition of the step window into
+  compute / collective / transfer / host-serde / idle, by priority so
+  nested spans (serde inside a send) are not double-counted.
+* ``build_report`` / ``report_from_trace`` — everything above as one
+  dict; a merged trace dumped by ``session.dump_trace()`` embeds the
+  predicted timeline in its metadata, so a trace FILE is a
+  self-contained fidelity input (tools/fidelity_report.py --trace).
+
+Feed the join's matched rows to ``telemetry/calibrate.py`` to fit the
+cost model back to what was measured.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Iterable, List, Optional, Tuple
+
+# Bookkeeping kinds that the runtimes never execute as real tasks (and
+# predicted rows with no device assignment): excluded from the join.
+SKIP_KINDS = {"split", "merge", "output", "macro"}
+
+# span cat -> attribution bucket. "input"/"data" are host-side arg
+# routing (device_put), closer to serde than to device compute.
+CAT_BUCKET = {
+    "compute": "compute",
+    "ga": "compute", "ga_init": "compute", "apply": "compute",
+    "ar": "collective",
+    "send": "transfer", "recv": "transfer",
+    "serde": "host_serde", "input": "host_serde", "data": "host_serde",
+    # Serving spans (serve:prefill/serve:decode, PR 8's chunked prefill):
+    # model executions, so they attribute as compute instead of falling
+    # into the untagged-span clamp.
+    "serve": "compute",
+}
+# Nested spans: a serde span lives inside its send/recv span, which may
+# live inside compute-adjacent windows. Earlier buckets own overlaps.
+BUCKET_PRIORITY = ("host_serde", "collective", "transfer", "compute")
+
+
+# -- measured-span access ---------------------------------------------------
+
+def measured_task_spans(events: Iterable[Dict[str, Any]],
+                        step: Optional[int] = None
+                        ) -> List[Dict[str, Any]]:
+    """Normalize task-tagged spans from either raw tracer records or
+    merged chrome-trace events (both carry ts/dur/args)."""
+    out: List[Dict[str, Any]] = []
+    for e in events:
+        if e.get("ph") not in (None, "X"):
+            continue
+        args = e.get("args") or {}
+        if "task" not in args:
+            continue
+        if step is not None and args.get("step") != step:
+            continue
+        out.append({
+            "task": int(args["task"]),
+            "ts_us": float(e["ts"]),
+            "dur_us": float(e.get("dur", 0.0)),
+            "kind": e.get("cat", "misc"),
+            "name": e.get("name", ""),
+            "worker": args.get("worker"),
+            "bytes": args.get("bytes"),
+            "step": args.get("step"),
+        })
+    return out
+
+
+def steps_present(events: Iterable[Dict[str, Any]]) -> List[int]:
+    steps = {m["step"] for m in measured_task_spans(events)
+             if m.get("step") is not None}
+    return sorted(steps)
+
+
+# -- the join ---------------------------------------------------------------
+
+@dataclasses.dataclass
+class FidelityJoin:
+    matched: List[Dict[str, Any]]
+    orphan_predicted: List[int]    # predicted, no measured span
+    orphan_measured: List[int]     # measured task id not in the schedule
+    skipped: List[int]             # bookkeeping kinds, never dispatched
+
+    @property
+    def join_fraction(self) -> float:
+        n = len(self.matched) + len(self.orphan_predicted)
+        return len(self.matched) / n if n else 1.0
+
+
+def join_timelines(predicted: Iterable[Dict[str, Any]],
+                   measured: Iterable[Dict[str, Any]]) -> FidelityJoin:
+    """Exact join on task id. A task measured across several steps
+    contributes its mean duration (the fit wants the typical cost, not
+    one sample); ``measured_ts_us`` is the earliest occurrence."""
+    by_task: Dict[int, List[Dict[str, Any]]] = {}
+    for m in measured:
+        by_task.setdefault(m["task"], []).append(m)
+    matched: List[Dict[str, Any]] = []
+    orphan_p: List[int] = []
+    skipped: List[int] = []
+    for p in predicted:
+        if p.get("kind") in SKIP_KINDS or not p.get("devices"):
+            skipped.append(p["task"])
+            continue
+        ms = by_task.pop(p["task"], None)
+        if not ms:
+            orphan_p.append(p["task"])
+            continue
+        dur = sum(m["dur_us"] for m in ms) / len(ms)
+        first = min(ms, key=lambda m: m["ts_us"])
+        row = dict(p)
+        row.update({
+            "measured_us": dur,
+            "measured_ts_us": first["ts_us"],
+            "n_measured": len(ms),
+            "drift_us": dur - p["dur_us"],
+            "ratio": (dur / p["dur_us"]) if p["dur_us"] > 0 else None,
+        })
+        if not row.get("bytes"):
+            row["bytes"] = first.get("bytes")
+        matched.append(row)
+    return FidelityJoin(matched=matched, orphan_predicted=orphan_p,
+                        orphan_measured=sorted(by_task), skipped=skipped)
+
+
+def drift_by_kind(matched: Iterable[Dict[str, Any]]
+                  ) -> Dict[str, Dict[str, Any]]:
+    """Aggregate the join per task kind: n, predicted/measured ms,
+    drift, and the measured/predicted ratio."""
+    agg: Dict[str, Dict[str, Any]] = {}
+    for r in matched:
+        a = agg.setdefault(str(r.get("kind", "misc")),
+                           {"n": 0, "predicted_ms": 0.0,
+                            "measured_ms": 0.0})
+        a["n"] += 1
+        a["predicted_ms"] += r["dur_us"] / 1e3
+        a["measured_ms"] += r["measured_us"] / 1e3
+    for a in agg.values():
+        a["drift_ms"] = round(a["measured_ms"] - a["predicted_ms"], 3)
+        a["ratio"] = (round(a["measured_ms"] / a["predicted_ms"], 2)
+                      if a["predicted_ms"] > 0 else None)
+        a["predicted_ms"] = round(a["predicted_ms"], 3)
+        a["measured_ms"] = round(a["measured_ms"], 3)
+    return agg
+
+
+# -- critical path ----------------------------------------------------------
+
+def timeline_critical_path(records: Iterable[Dict[str, Any]]
+                           ) -> List[int]:
+    """Critical path (first -> last task id) over any timeline whose
+    records carry task/parents/devices/start_us/dur_us. From the
+    last-finishing task, repeatedly step to the latest-finishing
+    predecessor — a DAG parent or the previous occupant of a shared
+    device (resource serialization is attribution too)."""
+    recs: Dict[int, Dict[str, Any]] = {}
+    for r in records:
+        if r.get("start_us") is None or r.get("dur_us") is None:
+            continue
+        recs[r["task"]] = r
+    if not recs:
+        return []
+    end = {t: r["start_us"] + r["dur_us"] for t, r in recs.items()}
+
+    dev_prev: Dict[int, List[int]] = {}
+    by_dev: Dict[Any, List[int]] = {}
+    for t in sorted(recs, key=lambda t: (recs[t]["start_us"], t)):
+        r = recs[t]
+        devs = r.get("devices") or [("w", r.get("worker"))]
+        for d in devs:
+            seq = by_dev.setdefault(d, [])
+            if seq:
+                dev_prev.setdefault(t, []).append(seq[-1])
+            seq.append(t)
+
+    cur = max(recs, key=lambda t: (end[t], t))
+    path = [cur]
+    seen = {cur}
+    for _ in range(len(recs)):
+        r = recs[cur]
+        cands = [p for p in (r.get("parents") or ()) if p in recs]
+        cands += dev_prev.get(cur, [])
+        cands = [c for c in cands if c not in seen]
+        if not cands:
+            break
+        cur = max(cands, key=lambda t: (end[t], t))
+        seen.add(cur)
+        path.append(cur)
+    path.reverse()
+    return path
+
+
+# -- wall-time attribution --------------------------------------------------
+
+def _union_us(intervals: List[Tuple[float, float]]) -> float:
+    total, end = 0.0, None
+    for t0, t1 in sorted(intervals):
+        if end is None or t0 > end:
+            total += t1 - t0
+            end = t1
+        elif t1 > end:
+            total += t1 - end
+            end = t1
+    return total
+
+
+def _covered_minus(intervals: List[Tuple[float, float]],
+                   covered: List[Tuple[float, float]]) -> float:
+    """us of ``intervals`` NOT already covered (union(new+old)-union(old))."""
+    return _union_us(intervals + covered) - _union_us(covered)
+
+
+def attribution(events: Iterable[Dict[str, Any]],
+                step: Optional[int] = None
+                ) -> Dict[str, Dict[str, float]]:
+    """Per-worker partition of the step window into
+    compute/collective/transfer/host_serde/idle (ms). Overlaps resolve
+    by BUCKET_PRIORITY (a serde span inside its send span counts once,
+    as serde). A span lands on the worker lane named by its ``worker``
+    arg, falling back to the event ``pid`` in merged traces."""
+    events = list(events)
+    lanes: Dict[Any, Dict[str, List[Tuple[float, float]]]] = {}
+    windows: Dict[Any, List[Tuple[float, float]]] = {}
+    # Global step window: spans with no step tag (host serde happens
+    # outside any worker's step envelope) are clamped to it, otherwise
+    # an untagged lane's window would stretch over the whole run.
+    g_lo = g_hi = None
+    for e in events:
+        args = e.get("args") or {}
+        if e.get("cat") != "step" or e.get("ph") not in (None, "X"):
+            continue
+        if step is not None and args.get("step") not in (None, step):
+            continue
+        t0 = float(e["ts"])
+        t1 = t0 + float(e.get("dur", 0.0))
+        g_lo = t0 if g_lo is None else min(g_lo, t0)
+        g_hi = t1 if g_hi is None else max(g_hi, t1)
+    for e in events:
+        if e.get("ph") not in (None, "X"):
+            continue
+        args = e.get("args") or {}
+        if step is not None and "step" in args and args["step"] != step:
+            continue
+        lane = args.get("worker", e.get("pid"))
+        cat = e.get("cat", "misc")
+        iv = (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)))
+        if cat == "step":
+            windows.setdefault(lane, []).append(iv)
+            continue
+        if "step" not in args and g_lo is not None:
+            if iv[1] < g_lo or iv[0] > g_hi:
+                continue
+            iv = (max(iv[0], g_lo), min(iv[1], g_hi))
+        bucket = CAT_BUCKET.get(cat)
+        if bucket is None:
+            continue
+        lanes.setdefault(lane, {}).setdefault(bucket, []).append(iv)
+    out: Dict[str, Dict[str, float]] = {}
+    for lane, buckets in sorted(lanes.items(), key=lambda kv: str(kv[0])):
+        allspans = [iv for ivs in buckets.values() for iv in ivs]
+        win = windows.get(lane) or allspans
+        t_lo = min(t0 for t0, _ in win)
+        t_hi = max(t1 for _, t1 in win)
+        window_us = t_hi - t_lo
+        covered: List[Tuple[float, float]] = []
+        row: Dict[str, float] = {"window_ms": round(window_us / 1e3, 3)}
+        for b in BUCKET_PRIORITY:
+            ivs = buckets.get(b, [])
+            row[f"{b}_ms"] = round(_covered_minus(ivs, covered) / 1e3, 3)
+            covered += ivs
+        busy_us = _union_us(covered)
+        row["idle_ms"] = round(max(window_us - busy_us, 0.0) / 1e3, 3)
+        out[str(lane)] = row
+    return out
+
+
+# -- the full report --------------------------------------------------------
+
+def build_report(predicted: List[Dict[str, Any]],
+                 events: Iterable[Dict[str, Any]],
+                 step: Optional[int] = None,
+                 top_n: int = 10) -> Dict[str, Any]:
+    """Join + drift + critical paths + attribution, as one JSON-able
+    dict. ``step=None`` picks the LAST step present in the spans (the
+    first step carries compile time; the last is steady-state)."""
+    events = list(events)
+    steps = steps_present(events)
+    if step is None and steps:
+        step = steps[-1]
+    measured = measured_task_spans(events, step=step)
+    join = join_timelines(predicted, measured)
+
+    names = {p["task"]: p.get("name", "") for p in predicted}
+    kinds = {p["task"]: p.get("kind", "") for p in predicted}
+
+    def describe(tids: List[int],
+                 durs: Dict[int, float]) -> List[Dict[str, Any]]:
+        return [{"task": t, "name": names.get(t, "?"),
+                 "kind": kinds.get(t, "?"),
+                 "dur_ms": round(durs.get(t, 0.0) / 1e3, 3)}
+                for t in tids]
+
+    pred_cp = timeline_critical_path(predicted)
+    pred_durs = {p["task"]: p["dur_us"] for p in predicted}
+    meas_records = [dict(r, start_us=r["measured_ts_us"],
+                         dur_us=r["measured_us"]) for r in join.matched]
+    meas_cp = timeline_critical_path(meas_records)
+    meas_durs = {r["task"]: r["measured_us"] for r in join.matched}
+
+    joinable = [p for p in predicted
+                if p.get("kind") not in SKIP_KINDS and p.get("devices")]
+    predicted_step_ms = None
+    if joinable:
+        lo = min(p["start_us"] for p in joinable)
+        hi = max(p["start_us"] + p["dur_us"] for p in joinable)
+        predicted_step_ms = round((hi - lo) / 1e3, 3)
+    measured_step_ms = None
+    if measured:
+        lo = min(m["ts_us"] for m in measured)
+        hi = max(m["ts_us"] + m["dur_us"] for m in measured)
+        measured_step_ms = round((hi - lo) / 1e3, 3)
+
+    top_measured = sorted(meas_cp, key=lambda t: -meas_durs.get(t, 0.0))
+    return {
+        "step": step,
+        "steps_seen": steps,
+        "join": {
+            "matched": len(join.matched),
+            "orphan_predicted": join.orphan_predicted,
+            "orphan_measured": join.orphan_measured,
+            "skipped_bookkeeping": len(join.skipped),
+            "fraction": round(join.join_fraction, 4),
+        },
+        "per_kind": drift_by_kind(join.matched),
+        "predicted_step_ms": predicted_step_ms,
+        "measured_step_ms": measured_step_ms,
+        "predicted_critical_path": describe(pred_cp, pred_durs),
+        "measured_critical_path": describe(meas_cp, meas_durs),
+        "top_critical_tasks": describe(top_measured[:top_n], meas_durs),
+        "attribution": attribution(events, step=step),
+        "matched": join.matched,
+    }
+
+
+def predicted_from_trace(trace: Dict[str, Any]
+                         ) -> Optional[List[Dict[str, Any]]]:
+    """The predicted timeline a merged trace file embeds (metadata
+    ``fidelity.predicted``, written by session.dump_trace())."""
+    return ((trace.get("metadata") or {}).get("fidelity")
+            or {}).get("predicted")
+
+
+def report_from_trace(trace: Dict[str, Any],
+                      step: Optional[int] = None,
+                      top_n: int = 10) -> Optional[Dict[str, Any]]:
+    predicted = predicted_from_trace(trace)
+    if not predicted:
+        return None
+    return build_report(predicted, trace.get("traceEvents", ()),
+                        step=step, top_n=top_n)

@@ -1,0 +1,352 @@
+"""Serving flight recorder: per-request waterfall events across processes.
+
+Reference parity: NONE (deliberate surplus). The serving stack (PRs 4/5/8)
+has rich *aggregate* counters — shed totals, prefix hit rates, restart
+counts — but nothing that answers "where did THIS request's latency go?"
+This module is the per-request story: a bounded ring of tagged waterfall
+events recorded at every hop a request takes —
+
+    client:  submit, placed, overload, breaker_open
+    engine:  queue, dedup, reject, admit (pages/prefix hit), prefill,
+             prefill_chunk, first_token, decode, finish, cancel, expire,
+             fail, drain_handoff, shed
+    supervisor: restart, replay, carry, deliver
+
+Every event carries the request id (``rid``), an epoch-microsecond
+timestamp, and the engine incarnation (``gen``) where relevant — so a
+request that survives a supervised engine restart shows its exactly-once
+history across BOTH incarnations (replayed prefill under gen N+1, one
+``finish``, one ``deliver``). Events ride back in ``GetTelemetry`` next
+to spans and are merged clock-aligned by telemetry/export.py;
+``tools/request_trace.py`` renders the text waterfall and the Perfetto
+flow-arrow export.
+
+RECORD PATH (ISSUE 16 rebuild): each writer thread owns a preallocated
+stride-4 list ring (rid, ev, monotonic-ns timestamp, args-or-None) — no
+lock, no per-event dict; snapshot() merges the rings time-sorted and
+converts to epoch microseconds through a per-recorder anchor captured at
+construction (so repeated snapshots agree exactly). Per-token decode
+events from concurrent engine threads interleave by their ns clocks, so
+merged waterfalls keep causal order even when two hops land in the same
+microsecond.
+
+GRACEFUL DEGRADATION: under overload the recorder sheds *detail*, never
+correctness. ``TEPDIST_FLIGHT_SAMPLE`` = N keeps every event for roughly
+1/N of request ids — the split is a stable crc32 hash of the rid, so a
+sampled-in request keeps its COMPLETE waterfall on every process (crc32
+is deterministic cross-process, unlike ``hash()``), and supervisor-scope
+events (rid ``"*"``: restart, shed totals) always record. Everything
+sampled away is counted in the explicit ``sampled_out`` counter next to
+ring-overflow ``dropped``, and both ride through GetTelemetry into the
+merged-trace LOSSY warnings.
+
+Gating: ``TEPDIST_FLIGHT`` (default ON — enabled cost is gated by
+tools/obs_overhead.py ``flight_overhead_pct`` <= 2% on a serving burst)
+with ``TEPDIST_FLIGHT_CAPACITY`` bounding per-thread ring memory. Same
+singleton/disabled-path contract as trace.py.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+import weakref
+import zlib
+from typing import Any, Dict, Iterable, List, Optional, Tuple
+
+_STRIDE = 4
+
+
+class _Ring:
+    """One writer thread's event ring: ``cap + 1`` physical slots so a
+    quiescent snapshot exports the full logical capacity while a racing
+    one can discard the single slot a concurrent writer may be filling
+    (see FlightRecorder.snapshot)."""
+
+    __slots__ = ("data", "cap", "phys", "cursor", "base", "sampled_out",
+                 "sampled_base")
+
+    def __init__(self, cap: int):
+        self.cap = cap
+        self.phys = cap + 1
+        self.data: List[Any] = [None] * (_STRIDE * self.phys)
+        self.cursor = 0
+        self.base = 0
+        self.sampled_out = 0
+        self.sampled_base = 0
+
+
+class _RingHandle:
+    """Parks the thread's ring for adoption when the thread dies (see
+    ledger._RingHandle — same lifecycle)."""
+
+    __slots__ = ("ring", "_rec")
+
+    def __init__(self, rec: "FlightRecorder", ring: _Ring):
+        self.ring = ring
+        self._rec = weakref.ref(rec)
+
+    def __del__(self):
+        rec = self._rec()
+        if rec is not None:
+            rec._park(self.ring)
+
+
+class FlightRecorder:
+    """Bounded per-request event recorder: lock-free per-thread rings."""
+
+    def __init__(self, enabled: bool = True, capacity: int = 8192,
+                 sample: int = 1):
+        self.enabled = enabled
+        self.capacity = max(int(capacity), 16)
+        self.sample = max(int(sample), 1)
+        self._reg_lock = threading.Lock()
+        self._rings: List[_Ring] = []
+        self._free: List[_Ring] = []
+        self._tlr = threading.local()
+        m0 = time.monotonic_ns()
+        t = time.time_ns()
+        m1 = time.monotonic_ns()
+        self._anchor_ns = t - (m0 + m1) // 2
+
+    def _new_ring(self) -> _Ring:
+        with self._reg_lock:
+            if self._free:
+                r = self._free.pop()
+            else:
+                r = _Ring(self.capacity)
+                self._rings.append(r)
+        tlr = self._tlr
+        tlr.handle = _RingHandle(self, r)
+        tlr.ring = r
+        return r
+
+    def _park(self, ring: _Ring) -> None:
+        with self._reg_lock:
+            self._free.append(ring)
+
+    def record(self, rid: str, ev: str, **args: Any) -> None:
+        if not self.enabled:
+            return
+        n = self.sample
+        if n > 1 and rid != "*" and zlib.crc32(rid.encode()) % n:
+            try:
+                r = self._tlr.ring
+            except AttributeError:
+                r = self._new_ring()
+            r.sampled_out += 1
+            return
+        try:
+            r = self._tlr.ring
+        except AttributeError:
+            r = self._new_ring()
+        c = r.cursor
+        i = (c % r.phys) * _STRIDE
+        d = r.data
+        d[i] = rid
+        d[i + 1] = ev
+        d[i + 2] = time.monotonic_ns()
+        d[i + 3] = args or None
+        r.cursor = c + 1          # publish AFTER the slot writes
+
+    def snapshot(self, clear: bool = False) -> Dict[str, Any]:
+        with self._reg_lock:
+            rings = list(self._rings)
+        anchor = self._anchor_ns
+        raw: List[Any] = []
+        dropped = 0
+        sampled_out = 0
+        for ridx, r in enumerate(rings):
+            cur = r.cursor
+            data = r.data[:]      # one C-level copy under the GIL
+            cur2 = r.cursor
+            # Record w rewrites slot (w - phys): with writers at most at
+            # cur2 by copy end, anything <= cur2 - phys may be torn.
+            # Quiescent (cur2 == cur) this reduces to the full capacity.
+            lo = max(r.base, cur - r.cap, cur2 - r.phys + 1)
+            phys = r.phys
+            for c in range(lo, cur):
+                i = (c % phys) * _STRIDE
+                raw.append((data[i + 2], ridx, c, data[i], data[i + 1],
+                            data[i + 3]))
+            dropped += (cur - r.base) - (cur - lo)
+            sampled_out += r.sampled_out - r.sampled_base
+        raw.sort()                # ns clock, then (ring, seq) tie-break
+        events = []
+        for ts_ns, _ridx, _c, rid, ev, args in raw:
+            entry = {"rid": rid, "ev": ev, "ts": (ts_ns + anchor) // 1000}
+            if args:
+                entry["args"] = dict(args)
+            events.append(entry)
+        out = {"enabled": self.enabled, "events": events,
+               "dropped": dropped, "sampled_out": sampled_out}
+        if clear:
+            self.clear()
+        return out
+
+    def delta(self, state: Optional[List[List[int]]] = None
+              ) -> Tuple[Dict[str, Any], List[List[int]]]:
+        """Cursor-based incremental read (ISSUE 17 watchtower stream).
+
+        ``state`` is the previous call's return: one ``[cursor,
+        sampled_out]`` pair per ring (ring indices are stable — the ring
+        list is append-only).  Returns ``(payload, new_state)`` where
+        payload matches ``snapshot()``'s event shape plus exact
+        ``dropped`` / ``sampled_out`` counts SINCE the caller's cursors.
+        Carrying the sampled-out cursor per ring is what keeps
+        ``TEPDIST_FLIGHT_SAMPLE``-shed requests from reading as phantom
+        gaps in watch state: a poll that saw no new events but a nonzero
+        sampled_out delta is complete, not lossy.  Nothing is consumed —
+        ``base``/``sampled_base`` stay put for full snapshots."""
+        state = list(state or [])
+        with self._reg_lock:
+            rings = list(self._rings)
+        anchor = self._anchor_ns
+        raw: List[Any] = []
+        dropped = 0
+        sampled_out = 0
+        new_state: List[List[int]] = []
+        for ridx, r in enumerate(rings):
+            cur = r.cursor
+            data = r.data[:]      # one C-level copy under the GIL
+            cur2 = r.cursor
+            so = r.sampled_out
+            if ridx < len(state):
+                prev, prev_so = int(state[ridx][0]), int(state[ridx][1])
+            else:
+                prev, prev_so = -1, r.sampled_base
+            p = min(max(prev, r.base), cur)
+            lo = max(p, cur - r.cap, cur2 - r.phys + 1)
+            dropped += lo - p
+            sampled_out += max(so - max(prev_so, r.sampled_base), 0)
+            phys = r.phys
+            for c in range(lo, cur):
+                i = (c % phys) * _STRIDE
+                raw.append((data[i + 2], ridx, c, data[i], data[i + 1],
+                            data[i + 3]))
+            new_state.append([cur, so])
+        raw.sort()
+        events = []
+        for ts_ns, _ridx, _c, rid, ev, args in raw:
+            entry = {"rid": rid, "ev": ev, "ts": (ts_ns + anchor) // 1000}
+            if args:
+                entry["args"] = dict(args)
+            events.append(entry)
+        return ({"events": events, "dropped": dropped,
+                 "sampled_out": sampled_out}, new_state)
+
+    @property
+    def dropped(self) -> int:
+        """Ring-overflow events lost since the last clear()."""
+        with self._reg_lock:
+            rings = list(self._rings)
+        lost = 0
+        for r in rings:
+            cur = r.cursor
+            lost += max((cur - r.base) - r.cap, 0)
+        return lost
+
+    @property
+    def sampled_out(self) -> int:
+        """Events shed by TEPDIST_FLIGHT_SAMPLE since the last clear()."""
+        with self._reg_lock:
+            rings = list(self._rings)
+        return sum(r.sampled_out - r.sampled_base for r in rings)
+
+    def clear(self) -> None:
+        with self._reg_lock:
+            rings = list(self._rings)
+        for r in rings:
+            r.base = r.cursor
+            r.sampled_base = r.sampled_out
+
+
+# -- module singleton -------------------------------------------------------
+
+_RECORDER: Optional[FlightRecorder] = None
+_INIT_LOCK = threading.Lock()
+
+
+def _init_from_env() -> FlightRecorder:
+    global _RECORDER
+    with _INIT_LOCK:
+        if _RECORDER is None:
+            from tepdist_tpu_torch.core.service_env import ServiceEnv
+            env = ServiceEnv.get()
+            _RECORDER = FlightRecorder(
+                enabled=bool(env.tepdist_flight),
+                capacity=int(env.tepdist_flight_capacity),
+                sample=int(getattr(env, "tepdist_flight_sample", 1) or 1))
+    return _RECORDER
+
+
+def recorder() -> FlightRecorder:
+    rec = _RECORDER
+    if rec is None:
+        rec = _init_from_env()
+    return rec
+
+
+def configure(enabled: Optional[bool] = None,
+              capacity: Optional[int] = None,
+              sample: Optional[int] = None) -> FlightRecorder:
+    global _RECORDER
+    rec = recorder()
+    if capacity is not None and capacity != rec.capacity:
+        rec = FlightRecorder(enabled=rec.enabled if enabled is None
+                             else enabled, capacity=capacity,
+                             sample=rec.sample if sample is None
+                             else sample)
+        with _INIT_LOCK:
+            _RECORDER = rec
+    else:
+        if enabled is not None:
+            rec.enabled = enabled
+        if sample is not None:
+            rec.sample = max(int(sample), 1)
+    return rec
+
+
+def record(rid: str, ev: str, **args: Any) -> None:
+    """Module-level fast path: one attribute load + one branch when off."""
+    rec = _RECORDER
+    if rec is None:
+        rec = _init_from_env()
+    if rec.enabled:
+        rec.record(rid, ev, **args)
+
+
+# -- cross-process merge ----------------------------------------------------
+
+def shift(events: Iterable[Dict[str, Any]], offset_us: float,
+          proc: Optional[str] = None) -> List[Dict[str, Any]]:
+    """Copy events onto the caller's clock (NTP-midpoint ``offset_us``),
+    optionally stamping the source process label for merged views."""
+    out = []
+    for e in events:
+        e2 = dict(e)
+        e2["ts"] = e2.get("ts", 0) - offset_us
+        if proc is not None and "proc" not in e2:
+            e2["proc"] = proc
+        out.append(e2)
+    return out
+
+
+def merge(event_lists: Iterable[Iterable[Dict[str, Any]]]
+          ) -> List[Dict[str, Any]]:
+    """Concatenate per-process (already shifted) event lists, time-sorted."""
+    merged: List[Dict[str, Any]] = []
+    for evs in event_lists:
+        merged.extend(evs)
+    merged.sort(key=lambda e: (e.get("ts", 0), e.get("rid", ""),
+                               e.get("ev", "")))
+    return merged
+
+
+def by_request(events: Iterable[Dict[str, Any]]
+               ) -> Dict[str, List[Dict[str, Any]]]:
+    """Group a merged event list per rid, preserving time order."""
+    out: Dict[str, List[Dict[str, Any]]] = {}
+    for e in events:
+        out.setdefault(e.get("rid", "?"), []).append(e)
+    return out

@@ -1,0 +1,971 @@
+"""Per-verb RPC wire/serde ledger: the hot-path instrument panel.
+
+Reference parity: NONE (deliberate surplus). ROADMAP item 5 commits the
+next perf PR to the ~31 ms/step/worker of Python serde + RPC
+orchestration that the round-5 probe root-caused, and item 3 wants to
+shrink the ``host_push`` wire format — neither is attackable without a
+per-verb, per-byte, per-step baseline. This module records exactly that
+at the four transport chokepoints:
+
+* ``rpc/protocol.py`` ``pack``/``unpack`` and ``encode_literal``/
+  ``decode_literal`` — header vs blob bytes and serde wall time. Header
+  bytes are the envelope framing (magic + lengths + JSON header), blob
+  bytes the raw tensor payloads, so ``header + blob == len(frame)``
+  EXACTLY (tests assert the identity against wrapped ``pack`` calls).
+* ``rpc/client.py`` / ``rpc/inproc.py`` stub ``call`` — per-verb call
+  counts and client-side wall time (retries included).
+* ``rpc/retry.py`` — retry counts and backoff (client queue wait).
+* ``rpc/server.py`` / inproc dispatch — server handler wall time.
+
+RECORD PATH (ISSUE 16 rebuild — the PR 11 treatment applied to the
+instruments themselves): each writer thread owns a preallocated
+fixed-stride ``array('q')`` ring. A record is seven int64 slot writes +
+one cursor bump — no lock, no dict, no per-record allocation; verbs are
+interned to integer codes and timestamps are raw ``time.monotonic_ns()``
+(immune to NTP steps; converted to epoch microseconds at read time
+through a per-ledger anchor captured at construction). ALL aggregation —
+per-verb rollups, per-step tables, window widening, interval lists — is
+deferred to ``snapshot()`` read time, which replays the rings and
+reconstructs exactly the dict shapes the previous implementation
+exported, so ``gap_table``/``reconcile``/``shift``/``merge`` and every
+downstream consumer (export.py, trace_summary, ledger_report) are
+untouched. Torn reads are impossible by construction: the ring holds one
+spare slot beyond its logical capacity and the reader discards anything
+a concurrent writer could have been overwriting during the (GIL-atomic)
+buffer copy; racing records are shed oldest-first and counted as
+dropped, never mis-read.
+
+Attribution uses a THREAD-LOCAL context (verb, side, step): the in-proc
+transport runs the servicer handler on the caller's own thread, so a
+context set around the client call is visible to the server-side
+pack/unpack with no API changes; the gRPC server handler opens its own
+server context. Frames packed outside any context land under
+``_unattributed`` — counted, never dropped.
+
+The GAP TABLE (``gap_table``) reduces the recorded intervals to a
+named-bucket decomposition of each master step window:
+
+    serde | rpc_orchestration | compute | dependency_idle | unattributed
+
+computed by interval union/difference so nested regions never double
+count: serde owns its time; handler time minus serde is execution;
+client rpc time minus (handler + serde) is pure orchestration (framing,
+retries, thread hops); ``compute`` is execution clamped to the
+single-process step time and ``dependency_idle`` the remainder (pipeline
+bubbles + per-worker dispatch). The five buckets sum to the step wall
+EXACTLY; ``unattributed`` is the honest residual the >=95% coverage
+criterion is graded on. ``reconcile`` cross-checks the serde bucket and
+step wall against PR 6's fidelity attribution.
+
+Gating: ``TEPDIST_LEDGER`` (default off). Disabled cost is one module
+attribute load + one branch per hook (same contract as trace.py's
+``_NULL_SPAN``). Enabled cost is gated by tools/obs_overhead.py
+(``ledger_overhead_pct`` <= 2% of the fleet step, a perf_gate
+DEFAULT_KEYS watchlist entry). Ring capacity: ``TEPDIST_LEDGER_RING``
+records per writer thread; overflow drops oldest records and is exported
+per category in ``intervals_dropped`` (plus a ``records_dropped``
+total).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+import weakref
+from array import array
+from typing import Any, Dict, Iterable, List, Optional, Tuple
+
+try:  # native write path (telemetry/_fastobs.c); pure Python otherwise
+    from tepdist_tpu_torch.telemetry import _fastobs
+except Exception:  # pragma: no cover — loader import never raises in-tree
+    _fastobs = None  # type: ignore[assignment]
+
+_UNATTRIBUTED = "_unattributed"
+
+# Interval categories feeding the gap table.
+_CATS = ("serde", "rpc", "handler")
+
+_STAT_KEYS = ("calls", "retries", "backoff_us",
+              "tx_header_bytes", "tx_blob_bytes",
+              "rx_header_bytes", "rx_blob_bytes",
+              "encode_us", "decode_us", "client_us", "server_us",
+              # Buffer materializations in encode_literal (PR 11): 0 on
+              # the zero-copy path, 1 per non-contiguous input or wire
+              # down-cast. merge() tolerates old snapshots without it.
+              "copies")
+
+# Record kinds (slot 0 of each ring record).
+_K_PACK, _K_UNPACK, _K_ENCODE, _K_DECODE, _K_CALL, _K_HANDLER, \
+    _K_RETRY, _K_WINDOW = range(8)
+_N_KINDS = 8
+# Which gap-table category each interval-bearing kind feeds.
+_KIND_CAT = {_K_PACK: "serde", _K_UNPACK: "serde", _K_ENCODE: "serde",
+             _K_DECODE: "serde", _K_CALL: "rpc", _K_HANDLER: "handler"}
+
+# Ring record layout: kind, verb code, step (-1 = none), t0_ns, t1_ns,
+# a, b — a/b are kind-specific payloads (byte counts, copies, backoff).
+_STRIDE = 7
+
+
+def _new_stats() -> Dict[str, float]:
+    return {k: 0 for k in _STAT_KEYS}
+
+
+def now_ns() -> int:
+    """The ledger's record clock: raw monotonic ns. Chokepoints bracket
+    work with this (NOT epoch time); snapshot() converts to epoch us."""
+    return time.monotonic_ns()
+
+
+class _Tls(threading.local):
+    verb: Optional[str] = None
+    side: str = "client"
+    step: Optional[int] = None
+
+
+_TLS = _Tls()
+
+
+class _Ring:
+    """One writer thread's record ring. ``phys`` (= capacity + 1) slots:
+    the spare slot is what lets a quiescent reader export the FULL
+    logical capacity while a racing reader can still prove which slots a
+    concurrent writer might have been rewriting (see snapshot())."""
+
+    __slots__ = ("data", "cap", "phys", "cursor", "base",
+                 "kind_writes", "kind_base")
+
+    def __init__(self, cap: int):
+        self.cap = cap
+        self.phys = cap + 1
+        self.data = array("q", bytes(8 * _STRIDE * self.phys))
+        self.cursor = 0      # records ever written (published AFTER slots)
+        self.base = 0        # first record index since the last clear()
+        self.kind_writes = [0] * _N_KINDS
+        self.kind_base = [0] * _N_KINDS
+
+
+class _RingHandle:
+    """Thread-local ring holder. When the owning thread dies, CPython
+    drops its thread-local dict and this handle's finalizer parks the
+    ring for adoption by the next new thread — short-lived worker
+    threads (the executor spawns a few per step) must not each pay the
+    ~200us preallocation, and dead threads' unread records must stay
+    visible to snapshot() until a clear()."""
+
+    __slots__ = ("ring", "_led")
+
+    def __init__(self, led: "RpcLedger", ring: _Ring):
+        self.ring = ring
+        self._led = weakref.ref(led)
+
+    def __del__(self):
+        led = self._led()
+        if led is not None:
+            led._park(self.ring)
+
+
+class _NullCtx:
+    """Shared no-op context: the disabled-mode fast path."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NullCtx":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NULL_CTX = _NullCtx()
+
+
+class _VerbScope:
+    """Client- or server-side scope for one verb: sets the thread-local
+    context on entry, records the wall interval + per-verb time on exit.
+    The previous context is restored, so the in-proc server scope nested
+    inside the client scope inherits (and then returns) verb/step."""
+
+    __slots__ = ("_led", "_verb", "_kind", "_step", "_t0",
+                 "_prev")
+
+    def __init__(self, led: "RpcLedger", verb: str, side: str,
+                 step: Optional[int]):
+        self._led = led
+        self._verb = verb
+        self._kind = _K_CALL if side == "client" else _K_HANDLER
+        self._step = step
+        self._t0 = 0
+        self._prev: Any = (None, "client", None)
+
+    def __enter__(self) -> "_VerbScope":
+        led = self._led
+        core = led._core
+        if core is not None:
+            code = led._verb_codes.get(self._verb)
+            if code is None:
+                code = led._intern(self._verb)
+            step = self._step
+            # A nested scope keeps the outer step when it has none of
+            # its own (server handler under a stepped client call):
+            # the -2 sentinel tells the core to leave the step alone.
+            self._prev = core.swap_ctx(code, -2 if step is None else step)
+        else:
+            tls = _TLS
+            self._prev = (tls.verb, tls.side, tls.step)
+            tls.verb = self._verb
+            tls.side = "client" if self._kind == _K_CALL else "server"
+            if self._step is not None:
+                tls.step = self._step
+        self._t0 = time.monotonic_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        led = self._led
+        core = led._core
+        if core is not None:
+            # Record BEFORE restoring: the scope's own verb/step are the
+            # live context (t1 is taken inside the core).
+            core.rec_scope(self._kind, self._t0)
+            core.swap_ctx(*self._prev)
+            return False
+        t1 = time.monotonic_ns()
+        tls = _TLS
+        tls.verb, tls.side, tls.step = self._prev
+        step = tls.step if self._step is None else self._step
+        led._rec(self._kind, self._verb, step, self._t0, t1, 0, 0)
+        return False
+
+
+class _StepScope:
+    """Master-side step window: brackets one fleet step and tags every
+    ledger record made on this thread with ``step``."""
+
+    __slots__ = ("_led", "_step", "_t0", "_prev")
+
+    def __init__(self, led: "RpcLedger", step: int):
+        self._led = led
+        self._step = int(step)
+        self._t0 = 0
+        self._prev: Optional[int] = None
+
+    def __enter__(self) -> "_StepScope":
+        core = self._led._core
+        if core is not None:
+            self._prev = core.set_step(self._step)
+        else:
+            self._prev = _TLS.step
+            _TLS.step = self._step
+        self._t0 = time.monotonic_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        led = self._led
+        core = led._core
+        if core is not None:
+            core.rec(_K_WINDOW, 0, self._step, self._t0,
+                     time.monotonic_ns(), 0, 0)
+            core.set_step(self._prev)
+            return False
+        _TLS.step = self._prev
+        led._rec(_K_WINDOW, None, self._step, self._t0,
+                 time.monotonic_ns(), 0, 0)
+        return False
+
+
+class _StepHint:
+    """Tag-only context: sets the thread-local step (no window record).
+    Used where the step is known from a header but the window belongs to
+    someone else (client call dispatch, server ExecuteRemotePlan)."""
+
+    __slots__ = ("_led", "_step", "_prev")
+
+    def __init__(self, led: "RpcLedger", step: Optional[int]):
+        self._led = led
+        self._step = step
+        self._prev: Optional[int] = None
+
+    def __enter__(self) -> "_StepHint":
+        core = self._led._core
+        if core is not None:
+            if self._step is not None:
+                self._prev = core.set_step(int(self._step))
+        else:
+            self._prev = _TLS.step
+            if self._step is not None:
+                _TLS.step = int(self._step)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        core = self._led._core
+        if core is not None:
+            if self._step is not None:
+                core.set_step(self._prev)
+        else:
+            _TLS.step = self._prev
+        return False
+
+
+class RpcLedger:
+    """Bounded wire/serde recorder: lock-free per-thread rings on the
+    write side, full aggregation on the read side."""
+
+    RING_RECORDS = 16384      # per writer thread (oldest dropped+counted)
+    MAX_STEPS = 256           # per-step rollups kept in snapshot()
+    EXPORT_INTERVALS = 8192   # per category cap in snapshot()
+
+    def __init__(self, enabled: bool = False,
+                 ring_records: Optional[int] = None):
+        self.enabled = enabled
+        self._ring_records = max(int(ring_records or self.RING_RECORDS), 4)
+        self._reg_lock = threading.Lock()
+        self._rings: List[_Ring] = []
+        self._free: List[_Ring] = []   # parked rings of dead threads
+        self._tlr = threading.local()
+        # Verb interning: recording stores int codes; the name table is
+        # append-only so a read needs no lock. None (no context) is
+        # pre-interned as code 0 -> "_unattributed".
+        self._verb_codes: Dict[Optional[str], int] = {None: 0,
+                                                      _UNATTRIBUTED: 0}
+        self._verb_names: List[str] = [_UNATTRIBUTED]
+        # Epoch anchor, captured ONCE: snapshot() maps monotonic record
+        # clocks onto epoch us with a constant offset, so repeated
+        # snapshots of the same records agree to the microsecond. The
+        # monotonic sandwich halves the clock-call-gap error.
+        m0 = time.monotonic_ns()
+        t = time.time_ns()
+        m1 = time.monotonic_ns()
+        self._anchor_ns = t - (m0 + m1) // 2
+        # Native ring core when the C extension is buildable. The
+        # record_* hot paths are swapped per instance so the common case
+        # is one Python frame (TLS context + verb-code lookup) plus one
+        # C call; the pure-Python rings below stay as the verified-equal
+        # fallback and both drain through the same snapshot() code.
+        mod = _fastobs.load() if _fastobs is not None else None
+        self._core = mod.LedgerCore(self._ring_records) \
+            if mod is not None else None
+        if self._core is not None:
+            # The transport hooks call these attributes directly: bind
+            # the core's bound C methods so one enabled record is ONE
+            # C call — verb/step ride in the core's per-thread context,
+            # which the scopes below swap natively.
+            self._rec = self._rec_c
+            self.record_pack = self._core.rec_pack
+            self.record_unpack = self._core.rec_unpack
+            self.record_encode = self._core.rec_encode
+            self.record_decode = self._core.rec_decode
+            self.record_retry = self._record_retry_c
+
+    # -- write side (hot path) ------------------------------------------
+    def _new_ring(self) -> _Ring:
+        with self._reg_lock:
+            if self._free:
+                r = self._free.pop()   # adopt a dead thread's ring
+            else:
+                r = _Ring(self._ring_records)
+                self._rings.append(r)
+        tlr = self._tlr
+        tlr.handle = _RingHandle(self, r)
+        tlr.ring = r
+        return r
+
+    def _park(self, ring: _Ring) -> None:
+        with self._reg_lock:
+            self._free.append(ring)
+
+    def _intern(self, verb: Optional[str]) -> int:
+        with self._reg_lock:
+            code = self._verb_codes.get(verb)
+            if code is None:
+                code = len(self._verb_names)
+                self._verb_names.append(verb)
+                self._verb_codes[verb] = code
+        return code
+
+    def _rec(self, kind: int, verb: Optional[str], step: Optional[int],
+             t0: int, t1: int, a: int, b: int) -> None:
+        """Append one fixed-stride record to this thread's ring. The
+        cursor is published AFTER the slot writes, so a reader counting
+        ``cursor`` records can never see a half-written one."""
+        try:
+            r = self._tlr.ring
+        except AttributeError:
+            r = self._new_ring()
+        code = self._verb_codes.get(verb)
+        if code is None:
+            code = self._intern(verb)
+        c = r.cursor
+        i = (c % r.phys) * _STRIDE
+        d = r.data
+        d[i] = kind
+        d[i + 1] = code
+        d[i + 2] = -1 if step is None else step
+        d[i + 3] = t0
+        d[i + 4] = t1
+        d[i + 5] = a
+        d[i + 6] = b
+        r.kind_writes[kind] += 1
+        r.cursor = c + 1
+
+    # -- low-level recording (called from the transport hooks) ----------
+    # Timestamps are time.monotonic_ns() (see now_ns()).
+
+    def record_pack(self, header_bytes: int, blob_bytes: int,
+                    t0_ns: int, t1_ns: int) -> None:
+        tls = _TLS
+        self._rec(_K_PACK, tls.verb, tls.step, t0_ns, t1_ns,
+                  header_bytes, blob_bytes)
+
+    def record_unpack(self, header_bytes: int, blob_bytes: int,
+                      t0_ns: int, t1_ns: int) -> None:
+        tls = _TLS
+        self._rec(_K_UNPACK, tls.verb, tls.step, t0_ns, t1_ns,
+                  header_bytes, blob_bytes)
+
+    def record_encode(self, t0_ns: int, t1_ns: int,
+                      copies: int = 0) -> None:
+        tls = _TLS
+        self._rec(_K_ENCODE, tls.verb, tls.step, t0_ns, t1_ns, copies, 0)
+
+    def record_decode(self, t0_ns: int, t1_ns: int) -> None:
+        tls = _TLS
+        self._rec(_K_DECODE, tls.verb, tls.step, t0_ns, t1_ns, 0, 0)
+
+    def record_retry(self, verb: str, backoff_s: float) -> None:
+        self._rec(_K_RETRY, verb, _TLS.step, 0, 0,
+                  int(backoff_s * 1e6), 0)
+
+    # -- native-core record paths (bound over the ones above when the C
+    # extension is available; same record layout, same drop accounting) -
+    def _rec_c(self, kind: int, verb: Optional[str], step: Optional[int],
+               t0: int, t1: int, a: int, b: int) -> None:
+        code = self._verb_codes.get(verb)
+        if code is None:
+            code = self._intern(verb)
+        self._core.rec(kind, code, -1 if step is None else step,
+                       t0, t1, a, b)
+
+    def _record_retry_c(self, verb: str, backoff_s: float) -> None:
+        code = self._verb_codes.get(verb)
+        if code is None:
+            code = self._intern(verb)
+        self._core.rec_retry(code, int(backoff_s * 1e6))
+
+    # -- read side ------------------------------------------------------
+    def _drain(self) -> Tuple[List[Tuple[int, ...]], Dict[str, int],
+                              int, List[str]]:
+        """Collect every readable record across all rings.
+
+        Per ring: read the cursor, slice-copy the buffer (GIL-atomic),
+        re-read the cursor. Records a writer might have been rewriting
+        during the copy — anything a post-copy writer position proves
+        could alias a surviving slot — are discarded and counted as
+        dropped, so a racing snapshot sheds oldest records rather than
+        exporting torn ones. When writers are quiescent the export is
+        exact: all ``min(cursor - base, cap)`` records, with drop counts
+        equal to ``writes - survivors`` per category."""
+        with self._reg_lock:
+            rings = list(self._rings)
+            names = list(self._verb_names)
+        recs: List[Tuple[int, ...]] = []
+        cat_dropped = {c: 0 for c in _CATS}
+        total_dropped = 0
+        if self._core is not None:
+            recs, kind_lost = self._core.drain()
+            for k, lost in enumerate(kind_lost):
+                if lost:
+                    total_dropped += lost
+                    cat = _KIND_CAT.get(k)
+                    if cat is not None:
+                        cat_dropped[cat] += lost
+        for r in rings:
+            cur = r.cursor
+            data = r.data[:]          # one C-level memcpy under the GIL
+            cur2 = r.cursor
+            # Writers reached at most record cur2 by copy end; record w
+            # overwrites slot (w - phys), so anything <= cur2 - phys may
+            # be torn. Quiescent (cur2 == cur): lo == cur - cap exactly.
+            lo = max(r.base, cur - r.cap, cur2 - r.phys + 1)
+            surv_by_kind = [0] * _N_KINDS
+            phys = r.phys
+            for c in range(lo, cur):
+                i = (c % phys) * _STRIDE
+                surv_by_kind[data[i]] += 1
+                recs.append(tuple(data[i:i + _STRIDE]))
+            writes = [r.kind_writes[k] - r.kind_base[k]
+                      for k in range(_N_KINDS)]
+            for k in range(_N_KINDS):
+                lost = max(writes[k] - surv_by_kind[k], 0)
+                if not lost:
+                    continue
+                total_dropped += lost
+                cat = _KIND_CAT.get(k)
+                if cat is not None:
+                    cat_dropped[cat] += lost
+        return recs, cat_dropped, total_dropped, names
+
+    def snapshot(self, clear: bool = False) -> Dict[str, Any]:
+        recs, cat_dropped, total_dropped, names = self._drain()
+        anchor = self._anchor_ns
+        verbs: Dict[str, Dict[str, float]] = {}
+        steps: Dict[int, Dict[str, Dict[str, float]]] = {}
+        windows: Dict[int, List[int]] = {}
+        intervals: Dict[str, List[List[int]]] = {c: [] for c in _CATS}
+
+        def rows(code: int, step: int) -> List[Dict[str, float]]:
+            verb = names[code] if code < len(names) else _UNATTRIBUTED
+            row = verbs.get(verb)
+            if row is None:
+                row = verbs[verb] = _new_stats()
+            out = [row]
+            if step >= 0:
+                by = steps.get(step)
+                if by is None:
+                    by = steps[step] = {}
+                srow = by.get(verb)
+                if srow is None:
+                    srow = by[verb] = _new_stats()
+                out.append(srow)
+            return out
+
+        for kind, code, step, t0, t1, a, b in recs:
+            if kind == _K_WINDOW:
+                lo_us = (t0 + anchor) // 1000
+                hi_us = (t1 + anchor) // 1000
+                w = windows.get(step)
+                if w is None:
+                    windows[step] = [lo_us, hi_us]
+                else:                 # re-executed step: widen the window
+                    if lo_us < w[0]:
+                        w[0] = lo_us
+                    if hi_us > w[1]:
+                        w[1] = hi_us
+                continue
+            if kind == _K_RETRY:
+                for s in rows(code, step):
+                    s["retries"] += 1
+                    s["backoff_us"] += a
+                continue
+            us = (t1 - t0) // 1000
+            if kind == _K_PACK:
+                for s in rows(code, step):
+                    s["tx_header_bytes"] += a
+                    s["tx_blob_bytes"] += b
+                    s["encode_us"] += us
+            elif kind == _K_UNPACK:
+                for s in rows(code, step):
+                    s["rx_header_bytes"] += a
+                    s["rx_blob_bytes"] += b
+                    s["decode_us"] += us
+            elif kind == _K_ENCODE:
+                for s in rows(code, step):
+                    s["encode_us"] += us
+                    s["copies"] += a
+            elif kind == _K_DECODE:
+                for s in rows(code, step):
+                    s["decode_us"] += us
+            elif kind == _K_CALL:
+                for s in rows(code, step):
+                    s["calls"] += 1
+                    s["client_us"] += us
+            else:  # _K_HANDLER
+                for s in rows(code, step):
+                    s["server_us"] += us
+            intervals[_KIND_CAT[kind]].append(
+                [(t0 + anchor) // 1000, us])
+
+        # Bound the per-step rollups (the write path no longer evicts):
+        # keep the newest MAX_STEPS steps, matching the old OrderedDict
+        # popitem(last=False) policy.
+        if len(steps) > self.MAX_STEPS:
+            for k in sorted(steps)[:-self.MAX_STEPS]:
+                del steps[k]
+        if len(windows) > self.MAX_STEPS:
+            for k in sorted(windows)[:-self.MAX_STEPS]:
+                del windows[k]
+        for c in _CATS:
+            ivs = intervals[c]
+            ivs.sort(key=lambda iv: iv[0])
+            if len(ivs) > self.EXPORT_INTERVALS:
+                intervals[c] = ivs[-self.EXPORT_INTERVALS:]
+
+        out = {
+            "enabled": self.enabled,
+            "verbs": verbs,
+            "steps": {str(k): by for k, by in steps.items()},
+            "windows": {str(k): w for k, w in windows.items()},
+            "intervals": intervals,
+            "intervals_dropped": cat_dropped,
+            "records_dropped": total_dropped,
+        }
+        if clear:
+            self.clear()
+        return out
+
+    def delta(self, state: Optional[Dict[str, Any]] = None
+              ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """Cursor-based incremental read (ISSUE 17 watchtower stream).
+
+        ``state`` is the (JSON-safe) cursor dict returned by the previous
+        call — ``{"core": [...], "py": [...]}``, one integer cursor per
+        ring.  Ring indices are stable identities: both ring lists are
+        append-only (dead threads' rings are parked for adoption, never
+        removed), so a cursor vector from poll N addresses the same rings
+        at poll N+1.  Returns ``(payload, new_state)`` where payload is::
+
+            {"records": [[kind, verb, step, t0_us, dur_us, a, b], ...],
+             "dropped": n}
+
+        with verb codes resolved to names and the monotonic record clock
+        mapped to epoch microseconds through the snapshot anchor (so the
+        records align with snapshots and cross-process NTP offsets).
+        Nothing is consumed — ``base`` is untouched and full snapshots
+        still see everything; ``dropped`` counts exactly the records
+        overwritten between the caller's cursor and the oldest readable
+        record (records below base were clear()ed, not dropped)."""
+        state = state or {}
+        with self._reg_lock:
+            rings = list(self._rings)
+            names = list(self._verb_names)
+        recs: List[Tuple[int, ...]] = []
+        dropped = 0
+        core_cursors = list(state.get("core") or [])
+        if self._core is not None:
+            crecs, core_cursors, cdrop = \
+                self._core.drain_since(core_cursors)
+            recs.extend(crecs)
+            dropped += cdrop
+            core_cursors = list(core_cursors)
+        py_cursors = list(state.get("py") or [])
+        new_py: List[int] = []
+        for ridx, r in enumerate(rings):
+            cur = r.cursor
+            data = r.data[:]      # one C-level memcpy under the GIL
+            cur2 = r.cursor
+            prev = py_cursors[ridx] if ridx < len(py_cursors) else -1
+            p = min(max(prev, r.base), cur)
+            # Same torn-slot guard as _drain(): racing records shed
+            # oldest-first and counted (they are about to be overwritten
+            # anyway, so the next poll's cursor never revisits them).
+            lo = max(p, cur - r.cap, cur2 - r.phys + 1)
+            dropped += lo - p
+            phys = r.phys
+            for c in range(lo, cur):
+                i = (c % phys) * _STRIDE
+                recs.append(tuple(data[i:i + _STRIDE]))
+            new_py.append(cur)
+        anchor = self._anchor_ns
+        out: List[List[int]] = []
+        for kind, code, step, t0, t1, a, b in recs:
+            verb = names[code] if code < len(names) else _UNATTRIBUTED
+            out.append([kind, verb, step, (t0 + anchor) // 1000,
+                        (t1 - t0) // 1000, a, b])
+        return ({"records": out, "dropped": dropped},
+                {"core": core_cursors, "py": new_py})
+
+    @property
+    def dropped(self) -> Dict[str, int]:
+        """Per-category drop counts (kept as a property for parity with
+        the old attribute; computed from the rings)."""
+        _, cat_dropped, _, _ = self._drain()
+        return cat_dropped
+
+    def clear(self) -> None:
+        with self._reg_lock:
+            rings = list(self._rings)
+        if self._core is not None:
+            self._core.clear()
+        for r in rings:
+            r.base = r.cursor
+            r.kind_base = list(r.kind_writes)
+
+
+# -- module singleton (trace.py's lazy-config pattern) ----------------------
+
+_LEDGER: Optional[RpcLedger] = None
+_INIT_LOCK = threading.Lock()
+
+
+def _init_from_env() -> RpcLedger:
+    global _LEDGER
+    with _INIT_LOCK:
+        if _LEDGER is None:
+            from tepdist_tpu_torch.core.service_env import ServiceEnv
+            env = ServiceEnv.get()
+            _LEDGER = RpcLedger(
+                enabled=bool(env.tepdist_ledger),
+                ring_records=int(getattr(env, "tepdist_ledger_ring", 0)
+                                 or RpcLedger.RING_RECORDS))
+    return _LEDGER
+
+
+def ledger() -> RpcLedger:
+    led = _LEDGER
+    if led is None:
+        led = _init_from_env()
+    return led
+
+
+def configure(enabled: Optional[bool] = None) -> RpcLedger:
+    led = ledger()
+    if enabled is not None:
+        led.enabled = enabled
+    return led
+
+
+def enabled() -> bool:
+    return ledger().enabled
+
+
+def active() -> Optional[RpcLedger]:
+    """The ledger iff enabled, else None — the hot-path gate. Hooks do
+    ``led = active()`` once and skip all recording when it is None."""
+    led = _LEDGER
+    if led is None:
+        led = _init_from_env()
+    return led if led.enabled else None
+
+
+# -- scope constructors (return the shared no-op when disabled) -------------
+#
+# With the native core these return a LedgerScope whose whole lifecycle
+# (ctx save/set on enter, interval record + ctx restore on exit) runs in
+# C — per RPC the scope costs one object allocation and two C calls.
+# The Python _VerbScope/_StepScope/_StepHint classes stay as the
+# fallback path and for direct construction.
+
+def client_scope(verb: str, step: Optional[int] = None):
+    led = active()
+    if led is None:
+        return _NULL_CTX
+    core = led._core
+    if core is not None:
+        code = led._verb_codes.get(verb)
+        if code is None:
+            code = led._intern(verb)
+        return core.scope(_K_CALL, code, -2 if step is None else step)
+    return _VerbScope(led, verb, "client", step)
+
+
+def server_scope(verb: str, step: Optional[int] = None):
+    led = active()
+    if led is None:
+        return _NULL_CTX
+    core = led._core
+    if core is not None:
+        code = led._verb_codes.get(verb)
+        if code is None:
+            code = led._intern(verb)
+        return core.scope(_K_HANDLER, code, -2 if step is None else step)
+    return _VerbScope(led, verb, "server", step)
+
+
+def step_scope(step: int):
+    led = active()
+    if led is None:
+        return _NULL_CTX
+    core = led._core
+    if core is not None:
+        return core.scope(_K_WINDOW, 0, int(step))
+    return _StepScope(led, step)
+
+
+def step_hint(step: Optional[int]):
+    led = active()
+    if led is None or step is None:
+        return _NULL_CTX
+    core = led._core
+    if core is not None:
+        return core.scope(-1, 0, int(step))
+    return _StepHint(led, step)
+
+
+# -- interval math ----------------------------------------------------------
+
+def _union_us(intervals: List[Tuple[float, float]]) -> float:
+    total, end = 0.0, None
+    for t0, t1 in sorted(intervals):
+        if end is None or t0 > end:
+            total += t1 - t0
+            end = t1
+        elif t1 > end:
+            total += t1 - end
+            end = t1
+    return total
+
+
+def _clip(ivs: Iterable[Tuple[float, float]], lo: float, hi: float
+          ) -> List[Tuple[float, float]]:
+    out = []
+    for t0, dur in ivs:
+        t1 = t0 + dur
+        if t1 <= lo or t0 >= hi:
+            continue
+        out.append((max(t0, lo), min(t1, hi)))
+    return out
+
+
+# -- the gap table ----------------------------------------------------------
+
+def gap_table(snapshot: Dict[str, Any],
+              single_step_ms: Optional[float] = None) -> Dict[str, Any]:
+    """Reduce a ledger snapshot to the named-bucket decomposition of each
+    recorded step window. Buckets sum to the window EXACTLY (interval
+    set algebra, not sampled estimates); ``coverage`` is the attributed
+    fraction (1 - unattributed/wall). ``single_step_ms`` (the
+    single-process step time) splits execution into compute vs
+    dependency_idle; without it the two ride together as compute."""
+    ivs = {c: [tuple(iv) for iv in snapshot.get("intervals", {}).get(c, ())]
+           for c in _CATS}
+    rows: List[Dict[str, Any]] = []
+    for key, (lo, hi) in sorted(
+            ((int(k), tuple(v)) for k, v
+             in (snapshot.get("windows") or {}).items())):
+        wall_us = hi - lo
+        if wall_us <= 0:
+            continue
+        S = _clip(ivs["serde"], lo, hi)
+        H = _clip(ivs["handler"], lo, hi)
+        R = _clip(ivs["rpc"], lo, hi)
+        u_s = _union_us(S)
+        u_hs = _union_us(H + S)
+        u_rhs = _union_us(R + H + S)
+        serde_us = u_s
+        exec_us = u_hs - u_s
+        orch_us = u_rhs - u_hs
+        unattributed_us = max(wall_us - u_rhs, 0.0)
+        if single_step_ms is not None:
+            compute_us = min(single_step_ms * 1e3, exec_us)
+            idle_us = exec_us - compute_us
+        else:
+            compute_us, idle_us = exec_us, 0.0
+        row = {
+            "step": key,
+            "wall_ms": round(wall_us / 1e3, 3),
+            "buckets": {
+                "serde_ms": round(serde_us / 1e3, 3),
+                "rpc_orchestration_ms": round(orch_us / 1e3, 3),
+                "compute_ms": round(compute_us / 1e3, 3),
+                "dependency_idle_ms": round(idle_us / 1e3, 3),
+                "unattributed_ms": round(unattributed_us / 1e3, 3),
+            },
+            "coverage": round(u_rhs / wall_us, 4),
+        }
+        if single_step_ms is not None:
+            row["gap_ms"] = round(wall_us / 1e3 - single_step_ms, 3)
+        rows.append(row)
+    agg: Optional[Dict[str, Any]] = None
+    # Steady state: the first window carries compile/warm-up; aggregate
+    # over the rest when there is a rest.
+    steady = rows[1:] if len(rows) > 1 else rows
+    if steady:
+        n = len(steady)
+        agg = {
+            "n_steps": n,
+            "wall_ms": round(sum(r["wall_ms"] for r in steady) / n, 3),
+            "buckets": {k: round(sum(r["buckets"][k] for r in steady) / n,
+                                 3)
+                        for k in steady[0]["buckets"]},
+            "coverage": round(sum(r["coverage"] for r in steady) / n, 4),
+        }
+        if single_step_ms is not None:
+            agg["single_step_ms"] = round(single_step_ms, 3)
+            agg["gap_ms"] = round(agg["wall_ms"] - single_step_ms, 3)
+    return {"steps": rows, "aggregate": agg}
+
+
+def reconcile(table: Dict[str, Any],
+              attribution: Dict[str, Dict[str, float]],
+              measured_step_ms: Optional[float] = None,
+              tolerance: float = 0.10) -> Dict[str, Any]:
+    """Cross-check the ledger's gap table against PR 6's fidelity
+    attribution (telemetry/fidelity.py) — two independent measurements
+    of the same step. Compared: the serde bucket (ledger hook timing vs
+    serde-span union) and the step wall (ledger window vs the fidelity
+    report's measured step). ``rel`` is the relative disagreement on the
+    larger of each pair; ``ok`` gates on ``tolerance``."""
+    agg = table.get("aggregate") or {}
+
+    def rel(a: Optional[float], b: Optional[float]) -> Optional[float]:
+        if a is None or b is None:
+            return None
+        hi = max(abs(a), abs(b))
+        return round(abs(a - b) / hi, 4) if hi > 1e-9 else 0.0
+
+    fid_serde = sum(lane.get("host_serde_ms", 0.0)
+                    for lane in attribution.values())
+    led_serde = (agg.get("buckets") or {}).get("serde_ms")
+    out: Dict[str, Any] = {
+        "serde": {"ledger_ms": led_serde,
+                  "fidelity_ms": round(fid_serde, 3),
+                  "rel": rel(led_serde, fid_serde)},
+        "tolerance": tolerance,
+    }
+    if measured_step_ms is not None:
+        out["step_wall"] = {"ledger_ms": agg.get("wall_ms"),
+                            "fidelity_ms": measured_step_ms,
+                            "rel": rel(agg.get("wall_ms"),
+                                       measured_step_ms)}
+    rels = [v["rel"] for v in out.values()
+            if isinstance(v, dict) and v.get("rel") is not None]
+    out["ok"] = bool(rels) and all(r <= tolerance for r in rels)
+    return out
+
+
+# -- cross-process merge ----------------------------------------------------
+
+def shift(snapshot: Dict[str, Any], offset_us: float) -> Dict[str, Any]:
+    """Return a copy with every timestamp moved onto the caller's clock
+    (``offset_us`` from the NTP-midpoint estimate, telemetry/export.py)."""
+    if not offset_us:
+        return snapshot
+    out = dict(snapshot)
+    out["windows"] = {k: [w[0] - offset_us, w[1] - offset_us]
+                      for k, w in (snapshot.get("windows") or {}).items()}
+    out["intervals"] = {
+        c: [[iv[0] - offset_us, iv[1]] for iv in ivs]
+        for c, ivs in (snapshot.get("intervals") or {}).items()}
+    return out
+
+
+def merge(snapshots: Iterable[Dict[str, Any]]) -> Dict[str, Any]:
+    """Fold per-process snapshots (already ``shift``-ed onto one clock)
+    into a fleet view: verb stats add, step rollups add, windows widen,
+    interval lists concatenate."""
+    verbs: Dict[str, Dict[str, float]] = {}
+    steps: Dict[str, Dict[str, Dict[str, float]]] = {}
+    windows: Dict[str, List[float]] = {}
+    intervals: Dict[str, List[List[float]]] = {c: [] for c in _CATS}
+    dropped: Dict[str, int] = {c: 0 for c in _CATS}
+    records_dropped = 0
+    any_enabled = False
+    for snap in snapshots:
+        if not snap:
+            continue
+        any_enabled = any_enabled or bool(snap.get("enabled"))
+        for v, s in (snap.get("verbs") or {}).items():
+            row = verbs.setdefault(v, _new_stats())
+            for k in _STAT_KEYS:
+                row[k] += s.get(k, 0)
+        for st, by in (snap.get("steps") or {}).items():
+            dst = steps.setdefault(st, {})
+            for v, s in by.items():
+                row = dst.setdefault(v, _new_stats())
+                for k in _STAT_KEYS:
+                    row[k] += s.get(k, 0)
+        for st, w in (snap.get("windows") or {}).items():
+            cur = windows.get(st)
+            if cur is None:
+                windows[st] = list(w)
+            else:
+                cur[0] = min(cur[0], w[0])
+                cur[1] = max(cur[1], w[1])
+        for c in _CATS:
+            intervals[c].extend(
+                (snap.get("intervals") or {}).get(c, ()))
+            dropped[c] += (snap.get("intervals_dropped") or {}).get(c, 0)
+        records_dropped += int(snap.get("records_dropped") or 0)
+    return {"enabled": any_enabled, "verbs": verbs, "steps": steps,
+            "windows": windows, "intervals": intervals,
+            "intervals_dropped": dropped,
+            "records_dropped": records_dropped}

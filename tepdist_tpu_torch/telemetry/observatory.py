@@ -1,0 +1,611 @@
+"""Exploration observatory: the planner's decision record.
+
+Reference parity: NONE — the reference dumps candidate strategies as
+text (auto_parallel.cc:309-311) and swallows infeasible proposals.
+This module makes every exploration an auditable, versioned artifact:
+
+* ``ExplorationReport`` — the full candidate ledger with per-candidate
+  cost decomposition (compute / collective / bubble seconds derived
+  from the Evaluator's ``Cost``), typed ``PruneRecord`` entries for
+  every proposal that did NOT become a candidate (enumeration skip vs
+  planning exception — a TypeError is a planner bug, a shape-mismatch
+  is an infeasible proposal), phase timings, the winner's rationale
+  (winner-vs-runner-up delta attributed to the cost term that decided
+  the argmin), and the lowering post-check's remat verdict.
+* ``capture()`` — context manager the explorers open around
+  enumeration; the enumerators call :func:`record_candidate` /
+  :func:`record_prune` (one branch when no capture is active).
+* ``scoreboard`` — joins the winner's PREDICTED cost terms against the
+  MEASURED per-worker attribution from ``telemetry/fidelity.py``, so a
+  plan choice is auditable against what actually ran.
+* ``diff_reports`` — compares two reports, flags winner flips, and
+  names the cost term that drove each flip (tools/plan_diff.py;
+  tools/perf_gate.py --plan-diff).
+
+The report is JSON on disk (``TEPDIST_PLAN_REPORT``), metadata in the
+merged trace (``metadata.exploration``, next to ``metadata.fidelity``),
+and a dict over the explore RPC — one schema everywhere.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import os
+import threading
+import time
+from typing import Any, Dict, Iterable, List, Optional
+
+log = logging.getLogger(__name__)
+
+REPORT_VERSION = 1
+
+# Exception types that indicate a PLANNER BUG rather than a proposal the
+# model legitimately cannot plan (a shape that doesn't divide, a motif
+# the decomposer rejects, ...). A report whose every proposal of a kind
+# died with one of these warns loudly — the search space silently
+# collapsed to whatever survived the bug.
+_BUG_EXC_TYPES = ("TypeError", "AssertionError", "AttributeError",
+                  "KeyError", "IndexError", "NameError",
+                  "UnboundLocalError", "ZeroDivisionError")
+
+# Fields excluded from ``canonical_dict`` — wall-time noise that must
+# not break report determinism for a fixed fixture.
+_VOLATILE_FIELDS = ("ts", "phases", "capture_ms")
+
+_COST_TERMS = ("compute_s", "coll_s", "bubble_s")
+
+
+# ----------------------------------------------------------------------
+# Records
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PruneRecord:
+    """One enumerated proposal that did NOT become a priced candidate.
+
+    ``reason``:
+      * ``enumeration_skip`` — the enumerator's own feasibility guard
+        (divisibility, device count) rejected it before planning;
+      * ``planning_exception`` — planning/pricing raised; ``exc_type``
+        distinguishes an infeasible proposal from a planner bug.
+    """
+
+    kind: str                       # spmd | seq | pipeline
+    config: str                     # e.g. "data=2 x model=4", "S=4 M=8"
+    reason: str                     # enumeration_skip | planning_exception
+    exc_type: Optional[str] = None
+    message: str = ""
+
+    @property
+    def suspect_bug(self) -> bool:
+        return self.exc_type in _BUG_EXC_TYPES
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"kind": self.kind, "config": self.config,
+                "reason": self.reason, "exc_type": self.exc_type,
+                "message": self.message,
+                "suspect_bug": self.suspect_bug}
+
+
+_COMM_DTYPE_SHORT = {"bfloat16": "bf16", "int8": "int8"}
+
+
+def comm_dtype_suffix(comm_dtype: str) -> str:
+    """A candidate's comm-dtype modifier as the ``@bf16``/``@int8`` config
+    suffix: the JAX package's ``parallel/exploration.py`` rendering, copied
+    here until the port has the planner."""
+    if not comm_dtype or comm_dtype == "float32":
+        return ""
+    return "@" + _COMM_DTYPE_SHORT.get(comm_dtype, comm_dtype)
+
+
+def zero_suffix(zero: bool) -> str:
+    """A candidate's ZeRO modifier as the ``@zero`` config suffix (the
+    planner's rendering, as :func:`comm_dtype_suffix`)."""
+    return "@zero" if zero else ""
+
+
+def candidate_config(c: Dict[str, Any]) -> str:
+    """Stable config string for a candidate dict — the alignment key
+    plan_diff joins two reports on (same rendering as
+    ``exploration.candidate_summary``)."""
+    suffix = (comm_dtype_suffix(c.get("comm_dtype", ""))
+              + zero_suffix(c.get("zero", False)))
+    if c["kind"] == "spmd":
+        return str(c["topology"]) + suffix
+    return (f"S={c['num_stages']} M={c['num_micro_batches']}"
+            + (f" tp={c['intra_tp']}" if c.get("intra_tp", 1) > 1 else "")
+            + (f" il/G={c['interleave_groups']}"
+               if c.get("placement") == "interleaved" else "")
+            + suffix)
+
+
+def cost_terms(cost: Any) -> Dict[str, Any]:
+    """Decompose an Evaluator ``Cost`` into additive seconds: compute +
+    collective + bubble = total. Ratios are preserved alongside so the
+    raw Cost is reconstructible."""
+    total = float(cost.total_duration)
+    coll = total * float(cost.coll_ratio)
+    bubble = total * float(cost.bubble_ratio)
+    return {
+        "total_s": total,
+        "compute_s": max(total - coll - bubble, 0.0),
+        "coll_s": coll,
+        "bubble_s": bubble,
+        "coll_ratio": float(cost.coll_ratio),
+        "bubble_ratio": float(cost.bubble_ratio),
+        "peak_bytes_per_device": float(cost.peak_bytes_per_device),
+        "memory_feasible": bool(cost.memory_feasible),
+        # getattr: Cost objects round-tripped from pre-ZeRO fixture JSONs
+        # may predate the field.
+        "opt_state_bytes_per_device": float(
+            getattr(cost, "opt_state_bytes_per_device", 0.0) or 0.0),
+    }
+
+
+# ----------------------------------------------------------------------
+# The capture collector
+# ----------------------------------------------------------------------
+
+_local = threading.local()
+_enabled = True
+
+
+def configure(enabled: Optional[bool] = None) -> None:
+    """Module switch (bench A/B): when disabled, ``capture()`` yields
+    None and the record hooks cost one branch."""
+    global _enabled
+    if enabled is not None:
+        _enabled = bool(enabled)
+
+
+def observatory_enabled() -> bool:
+    return _enabled
+
+
+class Collector:
+    """Accumulates prune records + phase timings during one explore."""
+
+    def __init__(self, entry_point: str):
+        self.entry_point = entry_point
+        self.prunes: List[PruneRecord] = []
+        self.phases: Dict[str, float] = {}
+        self.t0 = time.perf_counter()
+
+    def phase(self, name: str, seconds: float) -> None:
+        self.phases[f"{name}_ms"] = round(
+            self.phases.get(f"{name}_ms", 0.0) + seconds * 1e3, 3)
+
+
+def _active() -> Optional[Collector]:
+    return getattr(_local, "stack", None)[-1] \
+        if getattr(_local, "stack", None) else None
+
+
+class capture:
+    """Context manager opened by each explore entry point. Re-entrant:
+    nested captures stack, records go to the innermost."""
+
+    def __init__(self, entry_point: str):
+        self.entry_point = entry_point
+        self.collector: Optional[Collector] = None
+
+    def __enter__(self) -> Optional[Collector]:
+        if not _enabled:
+            return None
+        self.collector = Collector(self.entry_point)
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        stack.append(self.collector)
+        return self.collector
+
+    def __exit__(self, *exc) -> None:
+        if self.collector is not None:
+            _local.stack.pop()
+        return None
+
+
+def record_prune(kind: str, config: str, reason: str,
+                 exc: Optional[BaseException] = None,
+                 message: str = "") -> None:
+    """Replace the silent ``log.info`` swallow: always log, and append
+    a typed record when a capture is active."""
+    exc_type = type(exc).__name__ if exc is not None else None
+    msg = message or (str(exc) if exc is not None else "")
+    if reason == "planning_exception":
+        log.info("%s proposal %s pruned (%s: %s)", kind, config,
+                 exc_type, msg)
+    col = _active()
+    if col is not None:
+        col.prunes.append(PruneRecord(kind=kind, config=config,
+                                      reason=reason, exc_type=exc_type,
+                                      message=str(msg)[:300]))
+
+
+# ----------------------------------------------------------------------
+# Report assembly
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ExplorationReport:
+    """Versioned decision record for one exploration. Everything is
+    plain JSON types after ``to_dict`` — it travels over the explore
+    RPC (json header), into trace metadata, and onto disk unchanged."""
+
+    entry_point: str
+    n_devices: int
+    candidates: List[Dict[str, Any]]
+    prunes: List[Dict[str, Any]]
+    winner: Optional[Dict[str, Any]]
+    runner_up: Optional[Dict[str, Any]]
+    rationale: Optional[Dict[str, Any]]
+    excluded_kinds: List[str]
+    warnings: List[str]
+    phases: Dict[str, float]
+    lowering_remats: List[str] = dataclasses.field(default_factory=list)
+    capture_ms: float = 0.0
+    ts: float = 0.0
+    version: int = REPORT_VERSION
+
+    def to_dict(self) -> Dict[str, Any]:
+        d = dataclasses.asdict(self)
+        d["counts"] = self.counts()
+        d["prune_histogram"] = self.prune_histogram()
+        return d
+
+    def counts(self) -> Dict[str, Any]:
+        by_kind: Dict[str, int] = {}
+        for c in self.candidates:
+            by_kind[c["kind"]] = by_kind.get(c["kind"], 0) + 1
+        return {"enumerated": len(self.candidates) + len(self.prunes),
+                "candidates": len(self.candidates),
+                "pruned": len(self.prunes),
+                "candidates_by_kind": by_kind}
+
+    def prune_histogram(self) -> Dict[str, int]:
+        """Prune count by reason; memory-infeasible candidates (priced,
+        but argmin-excluded via ``Cost.key()``) counted alongside."""
+        hist: Dict[str, int] = {}
+        for p in self.prunes:
+            hist[p["reason"]] = hist.get(p["reason"], 0) + 1
+        n_mem = sum(1 for c in self.candidates
+                    if not c["cost"]["memory_feasible"])
+        if n_mem:
+            hist["memory_infeasible"] = n_mem
+        return hist
+
+    def canonical_dict(self) -> Dict[str, Any]:
+        """The report minus wall-time fields — byte-identical for a
+        fixed fixture (the determinism contract plan_diff relies on)."""
+        return canonical(self.to_dict())
+
+    # -- persistence --
+
+    def save(self, path: str) -> str:
+        if os.path.isdir(path):
+            path = os.path.join(
+                path, f"plan_report_{self.entry_point}.json")
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(self.to_dict(), f, indent=1, sort_keys=True)
+        return path
+
+    @staticmethod
+    def load(path: str) -> Dict[str, Any]:
+        with open(path) as f:
+            return json.load(f)
+
+
+def canonical(report_dict: Dict[str, Any]) -> Dict[str, Any]:
+    """Dict form of ``canonical_dict`` for reports that already crossed
+    a JSON boundary."""
+    return {k: v for k, v in report_dict.items()
+            if k not in _VOLATILE_FIELDS}
+
+
+def _candidate_row(c: Dict[str, Any]) -> Dict[str, Any]:
+    # enum_kind: WHICH enumerator proposed it (seq proposals land as
+    # kind="spmd" candidates) — the key prune records are typed under.
+    row = {"kind": c["kind"], "config": candidate_config(c),
+           "enum_kind": c.get("enum_kind", c["kind"]),
+           "cost": cost_terms(c["cost"])}
+    if "involuntary_remats" in c:
+        row["involuntary_remats"] = len(c["involuntary_remats"])
+    return row
+
+
+def _rationale(winner: Dict[str, Any],
+               runner_up: Optional[Dict[str, Any]]
+               ) -> Optional[Dict[str, Any]]:
+    """Why the argmin picked the winner: the per-term delta to the
+    runner-up, attributed to the single term that contributed most of
+    the gap (the 'deciding term' plan_diff names on a flip)."""
+    if runner_up is None:
+        return {"deciding_term": "only_feasible_candidate",
+                "delta_s": None, "terms": {}}
+    w, r = winner["cost"], runner_up["cost"]
+    terms = {t: round(r[t] - w[t], 12) for t in _COST_TERMS}
+    deciding = max(terms, key=lambda t: terms[t])
+    if terms[deciding] <= 0 and r["total_s"] <= w["total_s"]:
+        deciding = "tie"         # argmin order decided, not a cost term
+    return {"deciding_term": deciding,
+            "delta_s": round(r["total_s"] - w["total_s"], 12),
+            "terms": terms,
+            "runner_up_config": runner_up["config"]}
+
+
+def _uniform_failure_warnings(prunes: List[PruneRecord],
+                              candidates: List[Dict[str, Any]]
+                              ) -> List[str]:
+    """WARN loudly when every proposal of a kind pruned with the same
+    suspect exc_type — the classic signature of a planner bug silently
+    emptying part of the search space."""
+    warnings: List[str] = []
+    kinds_with_candidates = {c.get("enum_kind", c["kind"])
+                             for c in candidates}
+    by_kind: Dict[str, List[PruneRecord]] = {}
+    for p in prunes:
+        if p.reason == "planning_exception":
+            by_kind.setdefault(p.kind, []).append(p)
+    for kind, ps in sorted(by_kind.items()):
+        if kind in kinds_with_candidates:
+            continue
+        excs = {p.exc_type for p in ps}
+        if len(excs) == 1:
+            exc_type = next(iter(excs))
+            w = (f"every '{kind}' proposal ({len(ps)}) pruned with the "
+                 f"same {exc_type}"
+                 + (" — suspected planner BUG, not infeasibility"
+                    if exc_type in _BUG_EXC_TYPES else ""))
+            warnings.append(w)
+            log.warning("exploration observatory: %s (first: %s)",
+                        w, ps[0].message)
+    return warnings
+
+
+def build_report(collector: Optional[Collector],
+                 candidates: List[Dict[str, Any]],
+                 best: Optional[Dict[str, Any]],
+                 n_devices: int,
+                 entry_point: str = "explore",
+                 excluded_kinds: Iterable[str] = ()
+                 ) -> ExplorationReport:
+    """Assemble the report from the raw candidate dicts (with live Cost
+    objects) + the capture's prune records. Candidates are ranked by
+    the same ``Cost.key()`` the argmin used."""
+    t0 = time.perf_counter()
+    ranked = sorted(candidates, key=lambda c: c["cost"].key())
+    rows = []
+    winner_row = runner_row = None
+    for rank, c in enumerate(ranked):
+        row = _candidate_row(c)
+        row["rank"] = rank
+        row["winner"] = best is not None and c is best
+        rows.append(row)
+        if row["winner"]:
+            winner_row = row
+        elif (runner_row is None and winner_row is not None
+              and row["cost"]["memory_feasible"]):
+            runner_row = row
+    prune_recs = collector.prunes if collector is not None else []
+    report = ExplorationReport(
+        entry_point=(collector.entry_point if collector is not None
+                     else entry_point),
+        n_devices=n_devices,
+        candidates=rows,
+        prunes=[p.to_dict() for p in prune_recs],
+        winner=winner_row,
+        runner_up=runner_row,
+        rationale=(_rationale(winner_row, runner_row)
+                   if winner_row is not None else None),
+        excluded_kinds=list(excluded_kinds),
+        warnings=_uniform_failure_warnings(prune_recs, rows),
+        phases=dict(collector.phases) if collector is not None else {},
+        ts=time.time(),
+    )
+    report.capture_ms = round((time.perf_counter() - t0) * 1e3, 3)
+    maybe_persist(report)
+    return report
+
+
+def maybe_persist(report: ExplorationReport) -> Optional[str]:
+    """Honor the ``TEPDIST_PLAN_REPORT`` knob: a path (file or dir) the
+    report is written to on every capture."""
+    from tepdist_tpu_torch.core.service_env import ServiceEnv
+    try:
+        path = ServiceEnv.get().tepdist_plan_report
+    except AttributeError:
+        path = ""
+    if not path:
+        return None
+    try:
+        out = report.save(path)
+        log.info("exploration report -> %s", out)
+        return out
+    except OSError as e:
+        log.warning("could not persist exploration report to %s: %s",
+                    path, e)
+        return None
+
+
+def fold_remats(report_dict: Optional[Dict[str, Any]],
+                remats: Iterable[str]) -> None:
+    """Fold the winner_lowering_postcheck verdict into an already-built
+    report dict (the postcheck runs AFTER explore() returns, on the
+    materialized plan)."""
+    if not isinstance(report_dict, dict):
+        return
+    remats = list(remats)
+    report_dict["lowering_remats"] = remats
+    if remats and isinstance(report_dict.get("winner"), dict):
+        report_dict["winner"]["involuntary_remats"] = len(remats)
+
+
+# ----------------------------------------------------------------------
+# Completeness check (plan_explain --check, tests)
+# ----------------------------------------------------------------------
+
+def completeness(report: Dict[str, Any]) -> Dict[str, Any]:
+    """Every enumerated proposal must appear exactly once as candidate
+    or prune; configs must be unique within each ledger side."""
+    cands = report.get("candidates") or []
+    prunes = report.get("prunes") or []
+    counts = report.get("counts") or {}
+    cand_keys = [(c["kind"], c["config"]) for c in cands]
+    dup_c = len(cand_keys) - len(set(cand_keys))
+    unaccounted = (counts.get("enumerated", 0)
+                   - len(cands) - len(prunes))
+    n_winner = sum(1 for c in cands if c.get("winner"))
+    problems = []
+    if unaccounted:
+        problems.append(f"{unaccounted} enumerated proposal(s) "
+                        "unaccounted")
+    if dup_c:
+        problems.append(f"{dup_c} duplicate candidate config(s)")
+    if cands and n_winner != 1:
+        problems.append(f"expected exactly 1 winner, found {n_winner}")
+    return {"ok": not problems, "problems": problems,
+            "unaccounted": unaccounted, "candidates": len(cands),
+            "prunes": len(prunes)}
+
+
+# ----------------------------------------------------------------------
+# Predicted-vs-measured scoreboard (joins telemetry/fidelity.py)
+# ----------------------------------------------------------------------
+
+def scoreboard(report: Dict[str, Any],
+               fidelity_report: Dict[str, Any],
+               config: Optional[str] = None) -> Dict[str, Any]:
+    """Join a candidate's predicted cost terms against the measured
+    per-worker attribution from ``fidelity.build_report`` — compute vs
+    compute_ms, collective vs collective+transfer_ms, bubble vs
+    idle_ms, total vs measured_step_ms. Measured terms are the MEAN
+    over worker lanes (the predicted terms are per-device too).
+    ``config`` selects which candidate was EXECUTED (default: the
+    winner — normally what ran)."""
+    winner = report.get("winner")
+    if config is not None:
+        winner = next((c for c in report.get("candidates") or []
+                       if c["config"] == config), None)
+        if winner is None:
+            return {"ok": False,
+                    "problems": [f"no candidate with config {config!r}"]}
+    attr = fidelity_report.get("attribution") or {}
+    if not winner or not attr:
+        return {"ok": False,
+                "problems": (["report has no winner"] if not winner
+                             else ["fidelity report has no attribution"])}
+    lanes = list(attr.values())
+    n = len(lanes)
+    meas = {
+        "compute_ms": sum(l.get("compute_ms", 0.0) for l in lanes) / n,
+        "coll_ms": sum(l.get("collective_ms", 0.0)
+                       + l.get("transfer_ms", 0.0) for l in lanes) / n,
+        "bubble_ms": sum(l.get("idle_ms", 0.0) for l in lanes) / n,
+        "total_ms": fidelity_report.get("measured_step_ms"),
+    }
+    cost = winner["cost"]
+    pred = {
+        "compute_ms": cost["compute_s"] * 1e3,
+        "coll_ms": cost["coll_s"] * 1e3,
+        "bubble_ms": cost["bubble_s"] * 1e3,
+        "total_ms": cost["total_s"] * 1e3,
+    }
+    rows = {}
+    for term in ("compute_ms", "coll_ms", "bubble_ms", "total_ms"):
+        p, m = pred[term], meas[term]
+        rows[term] = {
+            "predicted_ms": round(p, 3),
+            "measured_ms": None if m is None else round(m, 3),
+            "drift_ms": None if m is None else round(m - p, 3),
+            "ratio": (round(m / p, 3) if m is not None and p > 0
+                      else None),
+        }
+    return {"ok": True, "winner_config": winner["config"],
+            "winner_kind": winner["kind"],
+            "is_winner": bool(winner.get("winner")),
+            "n_worker_lanes": n,
+            "terms": rows,
+            "measured_step_ms": fidelity_report.get("measured_step_ms"),
+            "predicted_step_ms": fidelity_report.get("predicted_step_ms")}
+
+
+def report_from_trace(trace: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+    """The exploration report a merged trace embeds
+    (``metadata.exploration``, written by session.dump_trace())."""
+    return (trace.get("metadata") or {}).get("exploration")
+
+
+# ----------------------------------------------------------------------
+# Report diffing (tools/plan_diff.py, perf_gate --plan-diff)
+# ----------------------------------------------------------------------
+
+def diff_reports(old: Dict[str, Any],
+                 new: Dict[str, Any]) -> Dict[str, Any]:
+    """Compare two reports. A winner FLIP is named with the cost term
+    that drove it: for A = old winner, B = new winner, the per-term
+    mover is (term_new[B] - term_new[A]) - (term_old[B] - term_old[A])
+    — how much each term moved the B-vs-A gap between the two runs; the
+    driver is the largest-magnitude mover in B's favor."""
+    def by_key(rep):
+        return {(c["kind"], c["config"]): c
+                for c in rep.get("candidates") or []}
+
+    o, n = by_key(old), by_key(new)
+    added = sorted(k for k in n if k not in o)
+    removed = sorted(k for k in o if k not in n)
+    ow, nw = old.get("winner"), new.get("winner")
+    out: Dict[str, Any] = {
+        "candidates_added": [f"{k}:{c}" for k, c in added],
+        "candidates_removed": [f"{k}:{c}" for k, c in removed],
+        "flip": False,
+        "driver": None,
+    }
+    ranked = []
+    for key in sorted(set(o) & set(n)):
+        d = n[key]["cost"]["total_s"] - o[key]["cost"]["total_s"]
+        ranked.append({"kind": key[0], "config": key[1],
+                       "delta_total_s": round(d, 12),
+                       "old_rank": o[key]["rank"],
+                       "new_rank": n[key]["rank"]})
+    out["cost_deltas"] = sorted(ranked,
+                                key=lambda r: -abs(r["delta_total_s"]))
+    if ow is None or nw is None:
+        out["note"] = "one report has no winner"
+        return out
+    okey = (ow["kind"], ow["config"])
+    nkey = (nw["kind"], nw["config"])
+    out["old_winner"] = f"{okey[0]}:{okey[1]}"
+    out["new_winner"] = f"{nkey[0]}:{nkey[1]}"
+    if okey == nkey:
+        return out
+
+    out["flip"] = True
+    if o.get(nkey) is None or n.get(okey) is None:
+        out["driver"] = "candidate_set_change"
+        out["detail"] = ("new winner absent from old report"
+                         if o.get(nkey) is None else
+                         "old winner absent from new report")
+        return out
+    if (o[okey]["cost"]["memory_feasible"]
+            != n[okey]["cost"]["memory_feasible"]):
+        out["driver"] = "memory_feasible"
+        out["detail"] = (f"old winner {okey[1]} memory feasibility "
+                         "changed between runs")
+        return out
+    movers = {}
+    for t in _COST_TERMS:
+        gap_new = n[nkey]["cost"][t] - n[okey]["cost"][t]
+        gap_old = o[nkey]["cost"][t] - o[okey]["cost"][t]
+        movers[t] = round(gap_new - gap_old, 12)
+    # The driver moved the (B - A) gap most in B's favor (negative).
+    driver = min(movers, key=lambda t: movers[t])
+    out["driver"] = driver
+    out["movers_s"] = movers
+    out["detail"] = (f"winner flipped {okey[1]} -> {nkey[1]}; '{driver}' "
+                     f"moved the gap by {movers[driver]:.3e}s in the "
+                     "new winner's favor")
+    return out

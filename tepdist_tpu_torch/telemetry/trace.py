@@ -1,0 +1,395 @@
+"""Thread-safe, ring-buffered span recorder.
+
+Reference parity: NONE — the reference ships no tracing layer; its timing
+evidence is scattered ``VLOG`` lines. This module is the permanent home for
+the cross-worker step timeline that one-off probes (tools/
+fleet_overhead_probe.py) used to reconstruct by hand.
+
+Design contract:
+
+* ``span(name, cat, **attrs)`` is a context manager. When tracing is
+  disabled it returns a shared ``_NULL_SPAN`` singleton — no Span object
+  is allocated and ``__enter__``/``__exit__`` are empty methods, so
+  instrumented hot paths cost one attribute load + one truth test per
+  call. Tests assert the identity directly (``span(...) is _NULL_SPAN``).
+* ENABLED PATH (ISSUE 16 rebuild): a finished span is five slot writes +
+  a cursor bump into the recording thread's preallocated stride-5 ring —
+  no lock, no per-span dict, one ``monotonic_ns`` read at enter and one
+  at exit. The export-ready dicts (epoch-us ``ts``, float-us ``dur``,
+  thread name) are built at ``snapshot()`` read time: monotonic enter
+  times are mapped to epoch microseconds through a per-tracer anchor
+  captured once at construction (so cross-process buffers stay
+  comparable after clock alignment, yet repeated snapshots of one span
+  agree to the microsecond), and the thread name is cached per ring, not
+  looked up per span. Budget: <= 600 ns/span enabled, gated by
+  tools/obs_overhead.py (``trace_enabled_ns_per_span``).
+* Rings are bounded (``TEPDIST_TRACE_CAPACITY`` spans per recording
+  thread): old spans fall off the front and are counted in ``dropped`` —
+  a lossy merged trace is misleading (missing tasks look like idle
+  time), so exporters surface this count and warn.
+* Gating: ``TEPDIST_TRACE`` in core/service_env.py. ``DEBUG`` mode
+  implies tracing — the debug log lines in executor.py / worker_plan.py /
+  rpc/server.py read their durations from spans, so spans are THE timing
+  mechanism, not a parallel one.
+"""
+
+from __future__ import annotations
+
+import bisect
+import threading
+import time
+import weakref
+from typing import Any, Dict, List, Optional, Tuple
+
+try:  # native write path (telemetry/_fastobs.c); pure Python otherwise
+    from tepdist_tpu_torch.telemetry import _fastobs
+except Exception:  # pragma: no cover — loader import never raises in-tree
+    _fastobs = None  # type: ignore[assignment]
+
+_STRIDE = 5
+
+
+class _NullSpan:
+    """Shared no-op span: the disabled-mode fast path."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NullSpan":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+    def set(self, **attrs) -> "_NullSpan":
+        return self
+
+    @property
+    def dur_us(self) -> float:
+        return 0.0
+
+    @property
+    def dur_ms(self) -> float:
+        return 0.0
+
+    @property
+    def elapsed_ms(self) -> float:
+        return 0.0
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class Span:
+    """One recorded interval. Created only when tracing is enabled."""
+
+    __slots__ = ("name", "cat", "attrs", "_t0", "_dur_ns", "_tracer")
+
+    def __init__(self, tracer: "Tracer", name: str, cat: str,
+                 attrs: Dict[str, Any]):
+        self._tracer = tracer
+        self.name = name
+        self.cat = cat
+        self.attrs = attrs
+        self._t0 = 0
+        self._dur_ns = 0
+
+    def __enter__(self) -> "Span":
+        self._t0 = time.monotonic_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        t0 = self._t0
+        dur = time.monotonic_ns() - t0
+        self._dur_ns = dur
+        # Ring append, inlined (one call frame saved per span): slot
+        # writes first, cursor publish last — see Tracer.snapshot().
+        tr = self._tracer
+        try:
+            r = tr._tlr.ring
+        except AttributeError:
+            r = tr._new_ring()
+        c = r.cursor
+        i = (c % r.phys) * _STRIDE
+        d = r.data
+        d[i] = self.name
+        d[i + 1] = self.cat
+        d[i + 2] = t0
+        d[i + 3] = dur
+        d[i + 4] = self.attrs
+        r.cursor = c + 1
+        return False
+
+    def set(self, **attrs) -> "Span":
+        """Attach attributes mid-span (byte counts known after the work)."""
+        self.attrs.update(attrs)
+        return self
+
+    @property
+    def dur_us(self) -> float:
+        return self._dur_ns / 1e3
+
+    @property
+    def dur_ms(self) -> float:
+        return self._dur_ns / 1e6
+
+    @property
+    def elapsed_ms(self) -> float:
+        """Live elapsed time (readable inside the with-block — this is
+        what the debug log lines print, making spans THE timing source)."""
+        return (time.monotonic_ns() - self._t0) / 1e6
+
+
+class _Ring:
+    """One recording thread's span ring (``cap + 1`` physical slots, see
+    the ledger's _Ring for the torn-read argument). The thread name is
+    cached per OWNERSHIP SEGMENT, not looked up per span: ``tid_segs``
+    maps cursor ranges to the owning thread's name, growing one entry
+    each time a dead thread's ring is adopted by a new thread."""
+
+    __slots__ = ("data", "cap", "phys", "cursor", "base", "seg_starts",
+                 "seg_tids")
+
+    def __init__(self, cap: int, tid: str):
+        self.cap = cap
+        self.phys = cap + 1
+        self.data: List[Any] = [None] * (_STRIDE * self.phys)
+        self.cursor = 0
+        self.base = 0
+        self.seg_starts = [0]
+        self.seg_tids = [tid]
+
+
+class _RingHandle:
+    """Parks the thread's ring for adoption when the thread dies (see
+    ledger._RingHandle — same lifecycle)."""
+
+    __slots__ = ("ring", "_tr")
+
+    def __init__(self, tr: "Tracer", ring: _Ring):
+        self.ring = ring
+        self._tr = weakref.ref(tr)
+
+    def __del__(self):
+        tr = self._tr()
+        if tr is not None:
+            tr._park(self.ring)
+
+
+class Tracer:
+    """Per-thread rings of finished spans for one process."""
+
+    def __init__(self, capacity: int = 65536, enabled: bool = False):
+        self.enabled = enabled
+        self.capacity = capacity
+        self._reg_lock = threading.Lock()
+        self._rings: List[_Ring] = []
+        self._free: List[_Ring] = []
+        self._tlr = threading.local()
+        # Native ring core when the C extension is buildable: span()
+        # returns FastSpan objects whose whole lifecycle runs in C. The
+        # Python rings stay live alongside (directly-constructed Span
+        # objects keep recording through them) and snapshot() merges
+        # both sources.
+        mod = _fastobs.load() if _fastobs is not None else None
+        self._core = mod.TraceCore(capacity) if mod is not None else None
+        # Epoch anchor, captured once: monotonic enter times map to
+        # epoch us with a constant offset. The monotonic sandwich bounds
+        # the offset error to half the clock-call gap (~tens of ns).
+        m0 = time.monotonic_ns()
+        t = time.time_ns()
+        m1 = time.monotonic_ns()
+        self._anchor_ns = t - (m0 + m1) // 2
+
+    def _new_ring(self) -> _Ring:
+        tid = threading.current_thread().name
+        with self._reg_lock:
+            if self._free:
+                r = self._free.pop()
+                if r.seg_tids[-1] != tid:
+                    r.seg_starts.append(r.cursor)
+                    r.seg_tids.append(tid)
+            else:
+                r = _Ring(self.capacity, tid)
+                self._rings.append(r)
+        tlr = self._tlr
+        tlr.handle = _RingHandle(self, r)
+        tlr.ring = r
+        return r
+
+    def _park(self, ring: _Ring) -> None:
+        with self._reg_lock:
+            self._free.append(ring)
+
+    def snapshot(self, clear: bool = False) -> List[Dict[str, Any]]:
+        """Build the export-ready span dicts (optionally draining the
+        rings). Draining also resets ``dropped`` — the count describes
+        the spans being handed out, not all of history."""
+        with self._reg_lock:
+            rings = list(self._rings)
+        anchor = self._anchor_ns
+        raw: List[Any] = []
+        if self._core is not None:
+            raw.extend(self._core.drain())
+        # Python-ring indices start past any native-ring index so the
+        # (enter-time, ring, seq) sort never compares across the two
+        # sources beyond the integer prefix.
+        for ridx, r in enumerate(rings, start=1_000_000):
+            cur = r.cursor
+            data = r.data[:]
+            cur2 = r.cursor
+            lo = max(r.base, cur - r.cap, cur2 - r.phys + 1)
+            phys = r.phys
+            starts = r.seg_starts
+            tids = r.seg_tids
+            one_seg = tids[0] if len(tids) == 1 else None
+            for c in range(lo, cur):
+                i = (c % phys) * _STRIDE
+                tid = one_seg if one_seg is not None else \
+                    tids[bisect.bisect_right(starts, c) - 1]
+                raw.append((data[i + 2], ridx, c, data[i], data[i + 1],
+                            data[i + 3], data[i + 4], tid))
+        raw.sort()                # enter time, then (ring, seq)
+        out = [{"name": name, "cat": cat,
+                "ts": (t0 + anchor) // 1000, "dur": dur / 1e3,
+                "tid": tid, "args": args}
+               for t0, _ridx, _c, name, cat, dur, args, tid in raw]
+        if clear:
+            self.clear()
+        return out
+
+    def delta(self, state: Optional[Dict[str, Any]] = None
+              ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """Cursor-based incremental read (ISSUE 17 watchtower stream):
+        ``state`` is ``{"core": [...], "py": [...]}`` per-ring cursor
+        vectors from the previous call (ring indices are stable — both
+        ring lists are append-only).  Returns ``(payload, new_state)``
+        with payload ``{"spans": [...export dicts...], "dropped": n}``;
+        nothing is consumed, so snapshots and the final trace dump still
+        see everything.  ``dropped`` counts exactly the spans overwritten
+        between the caller's cursors and the oldest readable span."""
+        state = state or {}
+        with self._reg_lock:
+            rings = list(self._rings)
+        anchor = self._anchor_ns
+        raw: List[Any] = []
+        dropped = 0
+        core_cursors = list(state.get("core") or [])
+        if self._core is not None:
+            crecs, core_cursors, cdrop = \
+                self._core.drain_since(core_cursors)
+            raw.extend(crecs)
+            dropped += cdrop
+            core_cursors = list(core_cursors)
+        py_cursors = list(state.get("py") or [])
+        new_py: List[int] = []
+        for pidx, r in enumerate(rings):
+            ridx = pidx + 1_000_000   # same source split as snapshot()
+            cur = r.cursor
+            data = r.data[:]
+            cur2 = r.cursor
+            prev = py_cursors[pidx] if pidx < len(py_cursors) else -1
+            p = min(max(prev, r.base), cur)
+            lo = max(p, cur - r.cap, cur2 - r.phys + 1)
+            dropped += lo - p
+            phys = r.phys
+            starts = r.seg_starts
+            tids = r.seg_tids
+            one_seg = tids[0] if len(tids) == 1 else None
+            for c in range(lo, cur):
+                i = (c % phys) * _STRIDE
+                tid = one_seg if one_seg is not None else \
+                    tids[bisect.bisect_right(starts, c) - 1]
+                raw.append((data[i + 2], ridx, c, data[i], data[i + 1],
+                            data[i + 3], data[i + 4], tid))
+            new_py.append(cur)
+        raw.sort()
+        spans = [{"name": name, "cat": cat,
+                  "ts": (t0 + anchor) // 1000, "dur": dur / 1e3,
+                  "tid": tid, "args": args}
+                 for t0, _ridx, _c, name, cat, dur, args, tid in raw]
+        return ({"spans": spans, "dropped": dropped},
+                {"core": core_cursors, "py": new_py})
+
+    @property
+    def dropped(self) -> int:
+        """Spans the rings have silently overwritten since the last
+        drain (computed from the cursors; read-only)."""
+        with self._reg_lock:
+            rings = list(self._rings)
+        lost = self._core.dropped() if self._core is not None else 0
+        for r in rings:
+            lost += max((r.cursor - r.base) - r.cap, 0)
+        return lost
+
+    def clear(self) -> None:
+        with self._reg_lock:
+            rings = list(self._rings)
+        if self._core is not None:
+            self._core.clear()
+        for r in rings:
+            r.base = r.cursor
+
+    def __len__(self) -> int:
+        with self._reg_lock:
+            rings = list(self._rings)
+        n = self._core.live() if self._core is not None else 0
+        return n + sum(min(r.cursor - r.base, r.cap) for r in rings)
+
+
+_TRACER: Optional[Tracer] = None
+_INIT_LOCK = threading.Lock()
+
+
+def _init_from_env() -> Tracer:
+    global _TRACER
+    with _INIT_LOCK:
+        if _TRACER is None:
+            from tepdist_tpu_torch.core.service_env import ServiceEnv
+            env = ServiceEnv.get()
+            _TRACER = Tracer(
+                capacity=max(1, int(env.tepdist_trace_capacity)),
+                enabled=bool(env.tepdist_trace) or bool(env.debug),
+            )
+    return _TRACER
+
+
+def tracer() -> Tracer:
+    """The process-wide tracer (lazily configured from ServiceEnv)."""
+    t = _TRACER
+    if t is None:
+        t = _init_from_env()
+    return t
+
+
+def configure(enabled: Optional[bool] = None,
+              capacity: Optional[int] = None) -> Tracer:
+    """Explicit (re)configuration — tests and entry points that change
+    ServiceEnv after import call this; a capacity change re-rings the
+    buffer (dropping buffered spans)."""
+    global _TRACER
+    with _INIT_LOCK:
+        t = _TRACER
+        if t is None or (capacity is not None and capacity != t.capacity):
+            t = Tracer(capacity=capacity if capacity is not None else 65536,
+                       enabled=t.enabled if t is not None else False)
+            _TRACER = t
+        if enabled is not None:
+            t.enabled = enabled
+    return t
+
+
+def enabled() -> bool:
+    return tracer().enabled
+
+
+def span(name: str, cat: str = "misc", **attrs):
+    """Start a span. Returns the shared no-op singleton when disabled."""
+    t = _TRACER
+    if t is None:
+        t = _init_from_env()
+    if not t.enabled:
+        return _NULL_SPAN
+    core = t._core
+    if core is not None:
+        return core.span(name, cat, attrs)
+    return Span(t, name, cat, attrs)

@@ -1,11 +1,14 @@
 """The port imports neither jax nor anything of tepdist_tpu, nor
 ml_dtypes (the card's machine has none): every module of
 tepdist_tpu_torch, and chip_smoke.py, imported in a fresh interpreter (the
-pytest process has jax loaded already)."""
+pytest process has jax loaded already); and the telemetry and serving
+packages each imported alone."""
 
 import os
 import subprocess
 import sys
+
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -30,4 +33,31 @@ def test_port_imports_no_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+_SUBPACKAGE_PROBE = """
+import importlib, pkgutil, sys
+pkg = importlib.import_module(sys.argv[1])
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                               pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "tepdist_tpu."))
+             or m in ("tepdist_tpu", "ml_dtypes", "optax"))
+print(len(names), bad)
+sys.exit(1 if bad or not names else 0)
+"""
+
+
+@pytest.mark.parametrize("package", ["tepdist_tpu_torch.telemetry",
+                                     "tepdist_tpu_torch.serving"])
+def test_subpackage_imports_no_jax(package):
+    """Each of the port's telemetry and serving packages, with every one
+    of its modules, imported alone in a fresh interpreter."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _SUBPACKAGE_PROBE, package],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
