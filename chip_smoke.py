@@ -24,6 +24,18 @@ calls (``plan_training`` + ``plan.step``, ``plan.save``/``restore``,
    below the first. A seventh step runs under ``torch.profiler``: device
    time by kernel, the device's busy share, and the flash kernels' time
    with their inputs cold (a measurement, not a check);
+5b. plan: the same model at bench.py's batch 48 x 1024, uncut, through
+   ``plan_training`` with no micro count: the step is captured on fake
+   tensors (the capture seconds; device memory before and after, which
+   must be equal; the graph's nodes, its flash ops, 2L forward and L of
+   each backward kernel, and its flops beside 8 N tokens), the sync-free
+   analysis sizes M (fraction, peak estimate, budget), and 6 steps train
+   at that M (sixth loss below the first, launches 2LM / LM / LM a step,
+   peak memory beside the estimate and the card's memory); should the
+   default budget's M not fit, the phase says so and sizes M again with
+   HBM_GB set to the memory free beside the state. A seventh step is
+   profiled as the slice's is. Then each kernel against its plain
+   version at the plan's shape [48/M*25, 1024, 64];
 6. llama: Llama 1B at full width and depth (bench.py's recipe: batch 4,
    seq 512, ``adamw(1e-4)``) for 6 steps on the bytes of the repository's
    text files, packed with ``data/tokens.py`` and fed through the
@@ -60,7 +72,8 @@ calls (``plan_training`` + ``plan.step``, ``plan.save``/``restore``,
    every request exactly once with the uninterrupted run's tokens.
 
 Then one ``{"kernels": [...]}`` line (a row for each kernel at each
-path's shape) and, last, the ``{"ok": true, ...}`` line. Any failed check
+path's shape) and, last, the ``{"ok": true, ...}`` line. Every JSON line
+is also written to ``chiprun_out/chip_smoke.jsonl``. Any failed check
 raises, so the script exits non-zero before that line. It exits non-zero
 when no CUDA device is present or when run outside the repository.
 """
@@ -122,8 +135,18 @@ KERNELS = {
 }
 
 
+# Output directory (git-ignored). Every emitted line is also appended to
+# LOG_PATH there, for consoles that keep only the end of a long output;
+# main() starts the file afresh.
+OUT_DIR = "chiprun_out"
+LOG_PATH = os.path.join(OUT_DIR, "chip_smoke.jsonl")
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    with open(LOG_PATH, "a") as f:
+        f.write(line + "\n")
 
 
 def nvidia_smi() -> str:
@@ -179,8 +202,6 @@ def bound(name: str, BH: int, T: int, D: int, dtype: str, causal: bool):
 def phase_device():
     import torch
 
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device is available")
     smi = nvidia_smi()
     print(smi, flush=True)
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
@@ -383,19 +404,25 @@ def phase_kernels():
         ("remat_path", dict(B=REMAT_BATCH, H=25, T=SEQ, D=64,
                             dtype=torch.bfloat16, causal=True), True),
     ]
-    results = {}
-    for i, (label, shape, time_it) in enumerate(cases):
-        res = _case(**shape, seed=100 + i, time_it=time_it)
-        shown = {k: (str(v).replace("torch.", "") if k == "dtype" else v)
-                 for k, v in shape.items()}
-        emit({"phase": "kernels", "case": label, "shape": shown,
-              "results": res})
-        bad = [n for n, r in res.items() if not r["ok"]]
-        if bad:
-            raise SystemExit(f"chip_smoke: {bad} disagree with their plain "
-                             f"versions at {label}")
-        results[label] = res
+    results = {label: _checked_case(label, shape, 100 + i, time_it)
+               for i, (label, shape, time_it) in enumerate(cases)}
     return results["main_path"], results["llama_path"], results["remat_path"]
+
+
+def _checked_case(label, shape, seed, time_it):
+    """One kernels-phase case: each kernel against its plain version at
+    ``shape`` (and timed when ``time_it``), emitted; fails the run on a
+    disagreement."""
+    res = _case(**shape, seed=seed, time_it=time_it)
+    shown = {k: (str(v).replace("torch.", "") if k == "dtype" else v)
+             for k, v in shape.items()}
+    emit({"phase": "kernels", "case": label, "shape": shown,
+          "results": res})
+    bad = [n for n, r in res.items() if not r["ok"]]
+    if bad:
+        raise SystemExit(f"chip_smoke: {bad} disagree with their plain "
+                         f"versions at {label}")
+    return res
 
 
 def _plain_attention(q, k, v):
@@ -518,6 +545,146 @@ def phase_slice():
     _profile_step("GPT-2 1.5B", lambda: plan.step(tokens),
                   sorted(steady)[len(steady) // 2])
     return launches
+
+
+# Plan phase: the same model and recipe at bench.py's batch, uncut (48 x
+# 1024 tokens), with the micro count left to the sync-free analysis.
+PLAN_BATCH = 48
+
+
+def phase_plan():
+    """GPT-2 1.5B at full width and depth, bench.py's recipe uncut:
+    ``plan_training`` with no micro count captures the loss-and-grad step
+    on fake tensors (no device memory), sizes M from the sync-free
+    analysis, then trains 6 steps at that M. Returns the kernels' launches
+    over the 6 steps and the micro batch size (the kernels' shape)."""
+    import torch
+
+    from tepdist_tpu_torch import train
+    from tepdist_tpu_torch.core.service_env import ServiceEnv
+    from tepdist_tpu_torch.graph import cost
+    from tepdist_tpu_torch.models import gpt2
+    from tepdist_tpu_torch.ops import flash_attention as fa
+    from tepdist_tpu_torch.optim import adamw_bf16
+    from tepdist_tpu_torch.parallel.performance_utils import chip_spec
+
+    torch.cuda.empty_cache()
+    cfg = _config(48)
+    L = cfg.n_layer
+    params = gpt2.stacked_init_params(cfg, seed=0, device="cuda")
+    tokens = gpt2.fake_batch(cfg, PLAN_BATCH, SEQ, seed=0, device="cuda")
+    capture = {}
+    trace_graph = train.trace_graph
+
+    def timed_trace(*args):
+        torch.cuda.synchronize()
+        capture["allocated_before"] = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = trace_graph(*args)
+        capture["seconds"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        capture["allocated_after"] = torch.cuda.memory_allocated()
+        capture["graph"] = out[0]
+        return out
+
+    def make_plan():
+        train.trace_graph = timed_trace
+        try:
+            return train.plan_training(
+                lambda p, t: gpt2.loss_fn_stacked(p, t, cfg),
+                adamw_bf16(1e-4), params, tokens, num_micro_batches=None)
+        finally:
+            train.trace_graph = trace_graph
+
+    def run(plan):
+        M = plan.sync_free.num_micro_batches
+        want = {"flash_fwd": 2 * L * M, "flash_dq": L * M,
+                "flash_dkv": L * M}
+        torch.cuda.reset_peak_memory_stats()
+        losses, seconds, per_step = [], [], []
+        fa.reset_launch_counts()
+        for _ in range(STEPS):
+            before = dict(fa.launch_counts)
+            t0 = time.perf_counter()
+            losses.append(plan.step(tokens))   # returns after a device sync
+            seconds.append(time.perf_counter() - t0)
+            per_step.append({n: fa.launch_counts[n] - before[n]
+                             for n in want})
+        return want, losses, seconds, per_step, dict(fa.launch_counts)
+
+    t0 = time.perf_counter()
+    plan = make_plan()
+    setup_s = time.perf_counter() - t0
+    default_budget = chip_spec().hbm_gb * 1e9 * 0.6
+    override = None
+    try:
+        want, losses, seconds, per_step, launches = run(plan)
+    except torch.cuda.OutOfMemoryError as e:
+        # A finding, not a tuning: the default budget ignores the state's
+        # bytes. Size M again against the memory left beside the state.
+        torch.cuda.synchronize()
+        free = torch.cuda.mem_get_info()[0]
+        override = {"error": str(e).splitlines()[0][:200],
+                    "failed_micro_batches":
+                        plan.sync_free.num_micro_batches,
+                    "hbm_gb": free / 1e9,
+                    "note": "HBM_GB set to the card's free memory after "
+                            "the state was placed"}
+        del plan
+        torch.cuda.empty_cache()
+        ServiceEnv.reset({"HBM_GB": str(free / 1e9)})
+        try:
+            plan = make_plan()
+            want, losses, seconds, per_step, launches = run(plan)
+        finally:
+            ServiceEnv.reset()
+    res, graph = plan.sync_free, capture["graph"]
+    M = res.num_micro_batches
+    n_params = gpt2.num_params(cfg)
+    tokens_per_step = PLAN_BATCH * SEQ
+    steady = seconds[1:]
+    emit({"phase": "plan", "model": "GPT-2 1.5B", "n_params": n_params,
+          "n_layer": L, "n_embd": cfg.n_embd, "n_head": cfg.n_head,
+          "seq": SEQ, "batch": PLAN_BATCH, "cut": "none",
+          "capture_seconds": capture["seconds"],
+          "allocated_before_capture": capture["allocated_before"],
+          "allocated_after_capture": capture["allocated_after"],
+          "graph_nodes": len(graph),
+          "graph_flash_ops": {n: graph.count(n) for n in KERNELS},
+          "total_flops": graph.total_flops(),
+          "matmul_flops": sum(n.flops for n in graph.nodes
+                              if n.prim in cost.MATMULS),
+          "full_remat_flops_8NT": 8.0 * n_params * tokens_per_step,
+          "batch_dims": {str(k): v for k, v in res.batch_dims.items()},
+          "sync_free_fraction": res.sync_free_fraction,
+          "peak_estimate_bytes": res.peak_activation_bytes,
+          "budget_bytes": (override["hbm_gb"] * 1e9 * 0.6 if override
+                           else default_budget),
+          "default_budget_bytes": default_budget,
+          "hbm_override": override,
+          "micro_batches": M, "topology": str(plan.topology),
+          "setup_seconds": setup_s, "losses": losses,
+          "step_seconds": seconds,
+          "tokens_per_s": tokens_per_step * len(steady) / sum(steady),
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+          "card_memory_bytes": torch.cuda.get_device_properties(0)
+          .total_memory,
+          "launches_per_step": per_step, "expected_per_step": want})
+    if capture["allocated_after"] != capture["allocated_before"]:
+        raise SystemExit("chip_smoke: the capture allocated device memory")
+    if graph.count("flash_fwd") != 2 * L or graph.count("flash_dq") != L \
+            or graph.count("flash_dkv") != L:
+        raise SystemExit("chip_smoke: the captured graph does not hold the "
+                         "flash ops of every layer")
+    if not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"chip_smoke: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise SystemExit(f"chip_smoke: loss did not fall {losses}")
+    if any(step != want for step in per_step):
+        raise SystemExit(f"chip_smoke: launches {per_step} != {want}")
+    _profile_step("GPT-2 1.5B plan", lambda: plan.step(tokens),
+                  sorted(steady)[len(steady) // 2])
+    return launches, PLAN_BATCH // M
 
 
 # Device-time groups of the profiled step, by kernel name (first match).
@@ -1019,7 +1186,6 @@ SERVE_ENGINE = dict(page_size=16, max_len=1024, prefix_cache=True,
 SUPERVISOR_LAYERS = 8
 SUPERVISOR_FAULT = "serve_fault:op=decode,step=10,ti=0"
 TELEMETRY_CALLS = 100_000
-OUT_DIR = "chiprun_out"
 
 
 def phase_telemetry() -> None:
@@ -1403,6 +1569,11 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    os.makedirs(OUT_DIR, exist_ok=True)
+    open(LOG_PATH, "w").close()
 
     phase_device()
     phase_build()
@@ -1410,6 +1581,12 @@ def main() -> int:
     gpt2_case, llama_case, remat_case = phase_kernels()
     phase_parity()
     gpt2_launches = phase_slice()
+    plan_launches, plan_mb = phase_plan()
+    torch.cuda.empty_cache()
+    # The plan path's kernels at the micro batch it chose.
+    plan_case = _checked_case("plan_path", dict(
+        B=plan_mb, H=25, T=SEQ, D=64, dtype=torch.bfloat16, causal=True),
+        seed=200, time_it=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         llama_launches, save = phase_llama(workdir)
@@ -1428,7 +1605,9 @@ def main() -> int:
             ("[4*16, 512, 128] bf16 causal (Llama 1B)", llama_case,
              llama_launches),
             ("[8*25, 1024, 64] bf16 causal (GPT-2 remat phase, 5 runs)",
-             remat_case, remat_launches)):
+             remat_case, remat_launches),
+            (f"[{plan_mb}*25, 1024, 64] bf16 causal (GPT-2 1.5B plan "
+             f"phase, batch {PLAN_BATCH})", plan_case, plan_launches)):
         for name, (source, replaces) in KERNELS.items():
             r = case[name]
             rows.append({"name": name, "shape": shape, "route": "cuda",

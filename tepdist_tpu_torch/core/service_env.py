@@ -78,7 +78,8 @@ _ENV_LIST: List[Tuple[str, type, Any, str]] = [
     ("FRONTEND", str, "JAX", "client frontend identifier"),
     ("FETCH_RESOURCE_VAR_STEPS", int, 0, "fetch vars to client every N steps"),
     # --- TPU-native knobs -------------------------------------------------
-    ("TPU_GENERATION", str, "v5e", "[tpu] chip generation for the cost model"),
+    ("TPU_GENERATION", str, "h100", "chip for the cost model (a key of "
+     "parallel/performance_utils.CHIPS)"),
     ("ICI_BANDWIDTH", float, -1.0, "[tpu] override ICI GB/s per link"),
     ("DCN_BANDWIDTH", float, -1.0, "[tpu] override DCN GB/s per host"),
     ("HBM_GB", float, -1.0, "[tpu] override per-device HBM GB for the cost "

@@ -27,11 +27,11 @@ import math
 from typing import Any, Callable, Dict, Optional
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from tepdist_tpu_torch.core import remat
 from tepdist_tpu_torch.core.device import resolve_device
+from tepdist_tpu_torch.ops import activations
 from tepdist_tpu_torch.ops.flash_attention import (FLASH_FWD_OP,
                                                    flash_attention)
 
@@ -195,7 +195,7 @@ def attention(block, x, cfg: GPT2Config, attn_impl: Optional[Callable] = None):
 
 def mlp(block, x):
     h = x @ block["mlp_fc_w"] + block["mlp_fc_b"]
-    h = F.gelu(h, approximate="tanh")
+    h = activations.gelu_tanh(h)
     return h @ block["mlp_proj_w"] + block["mlp_proj_b"]
 
 

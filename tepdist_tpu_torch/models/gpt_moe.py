@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from tepdist_tpu_torch.models import gpt2
+from tepdist_tpu_torch.ops import activations
 from tepdist_tpu_torch.models.gpt2 import GPT2Config, _layer_norm, attention
 
 
@@ -97,7 +98,7 @@ def moe_mlp(blk, x, cfg: MoEConfig):
 
     xin = torch.einsum("sec,sd->ecd", dispatch.to(dt), xf)
     h = torch.einsum("ecd,edf->ecf", xin, blk["moe_wi"])
-    h = F.gelu(h, approximate="tanh")
+    h = activations.gelu_tanh(h)
     hout = torch.einsum("ecf,efd->ecd", h, blk["moe_wo"])
     out = torch.einsum("sec,ecd->sd", combine.to(dt), hout)
     return out.reshape(B, T, D)

@@ -17,9 +17,9 @@ import math
 from typing import Any, Dict, Optional
 
 import torch
-import torch.nn.functional as F
 
 from tepdist_tpu_torch.core.device import resolve_device
+from tepdist_tpu_torch.ops import activations
 from tepdist_tpu_torch.ops.flash_attention import flash_attention
 
 
@@ -147,7 +147,8 @@ def _attention(blk, x, cfg: LlamaConfig):
 
 
 def _swiglu(blk, x):
-    return (F.silu(x @ blk["w_gate"]) * (x @ blk["w_up"])) @ blk["w_down"]
+    return ((activations.silu(x @ blk["w_gate"]) * (x @ blk["w_up"]))
+            @ blk["w_down"])
 
 
 def forward(params, tokens, cfg: LlamaConfig):

@@ -2,11 +2,9 @@
 
 The port of ``tepdist_tpu/ops/pallas/flash_attention.py``. Three CUDA
 kernels (``csrc/flash_fwd.cu``, ``flash_dq.cu``, ``flash_dkv.cu``) replace
-the three Pallas kernels; :func:`flash_attention` and
-:func:`flash_attention_with_lse` wrap them in ``torch.autograd.Function``s
-that mirror the two ``custom_vjp``s. The forward saves (O, LSE); the
-backward recomputes P from the LSE in two kernels, one accumulating dQ over
-key tiles and one accumulating dK/dV over query tiles, so no [T, T] matrix
+the three Pallas kernels. The forward saves (O, LSE); the backward
+recomputes P from the LSE in two kernels, one accumulating dQ over key
+tiles and one accumulating dK/dV over query tiles, so no [T, T] matrix
 reaches device memory. An LSE cotangent folds into delta.
 
 Each kernel wrapper (:func:`flash_fwd`, :func:`flash_dq`, :func:`flash_dkv`)
@@ -16,12 +14,17 @@ the plain PyTorch version beside it (``*_plain``), which the CPU tests use.
 The kernels mask the ragged edge themselves, so any T works and the JAX
 package's pad-to-128 and dense fallbacks have no counterpart here.
 
-The forward is also the ``torch.library`` custom op ``tepdist::flash_fwd``
-(:data:`FLASH_FWD_OP`), which the autograd ops call while a dispatch mode
-is active: a selective-checkpoint policy can name it and keep its outputs,
-so that a remat backward does not launch the forward again (GPT-2's
-``save_attn``). With no mode active they call :func:`flash_fwd` directly
-and skip the op's dispatch on the host.
+Each kernel is also a ``torch.library`` custom op (``tepdist::flash_fwd``,
+``tepdist::flash_dq``, ``tepdist::flash_dkv``; :data:`FLASH_FWD_OP` and its
+two siblings) with a fake impl and the head count as an argument, and the
+forward op's backward is the other two ops (``register_autograd``). So a
+graph captured with ``make_fx`` on fake tensors holds all three, as the
+reference's jaxpr holds its ``pallas_call``s, and a selective-checkpoint
+policy can name the forward and keep its outputs (GPT-2's ``save_attn``).
+The ops run only while a dispatch mode is active (capture, a policy);
+otherwise :func:`flash_attention` goes straight to the wrappers through an
+``autograd.Function`` with the same backward, which skips the ops' host
+dispatch. Both paths give the same values and the same launches.
 """
 
 from __future__ import annotations
@@ -206,18 +209,67 @@ def flash_dkv(q, k, v, do, lse, delta, causal: bool, scale: float
     return dk, dv
 
 
+# --------------------------------------------------------------------------
+# The kernels as torch.library ops. Each carries the head count H beside
+# causal and scale (the reference's forward call names all three, and the
+# flattened [BH, T, D] layout loses H); each has a fake impl, so a graph
+# captured on fake tensors holds them, and the forward's backward is the
+# other two ops, registered with ``register_autograd``.
+# --------------------------------------------------------------------------
+
 @torch.library.custom_op("tepdist::flash_fwd", mutates_args=())
 def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal: bool, scale: float
+                  causal: bool, scale: float, n_head: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     return flash_fwd(q, k, v, causal, scale)
 
 
+@_flash_fwd_op.register_fake
+def _(q, k, v, causal, scale, n_head):
+    return (torch.empty_like(q),
+            q.new_empty(q.shape[:2], dtype=torch.float32))
+
+
+@torch.library.custom_op("tepdist::flash_dq", mutates_args=())
+def _flash_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                 causal: bool, scale: float, n_head: int) -> torch.Tensor:
+    return flash_dq(q, k, v, do, lse, delta, causal, scale)
+
+
+@_flash_dq_op.register_fake
+def _(q, k, v, do, lse, delta, causal, scale, n_head):
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op("tepdist::flash_dkv", mutates_args=())
+def _flash_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                  causal: bool, scale: float, n_head: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return flash_dkv(q, k, v, do, lse, delta, causal, scale)
+
+
+@_flash_dkv_op.register_fake
+def _(q, k, v, do, lse, delta, causal, scale, n_head):
+    return torch.empty_like(k), torch.empty_like(v)
+
+
 FLASH_FWD_OP = torch.ops.tepdist.flash_fwd.default
+FLASH_DQ_OP = torch.ops.tepdist.flash_dq.default
+FLASH_DKV_OP = torch.ops.tepdist.flash_dkv.default
+
+
+def _use_ops() -> bool:
+    """Whether to call the kernels through their ops: only while a
+    dispatch mode is active (graph capture, a selective-checkpoint
+    policy). An eager step calls the wrappers directly, skipping the op's
+    host dispatch (50-94 us a call against 29-52 us, PERF.md section 6)."""
+    return _get_current_dispatch_mode() is not None
 
 
 # --------------------------------------------------------------------------
-# Differentiable ops
+# Differentiable attention
 # --------------------------------------------------------------------------
 
 def _flat(x: torch.Tensor) -> torch.Tensor:
@@ -225,17 +277,19 @@ def _flat(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(B * H, T, D).contiguous()
 
 
-def _forward(ctx, q, k, v, causal, scale):
-    fwd = FLASH_FWD_OP if _get_current_dispatch_mode() is not None else flash_fwd
-    o, lse = fwd(q, k, v, causal, scale)
+def _setup_context(ctx, inputs, output):
+    q, k, v, causal, scale, n_head = inputs
+    o, lse = output
     ctx.save_for_backward(q, k, v, o, lse)
-    ctx.causal, ctx.scale = causal, scale
-    return o, lse
+    ctx.causal, ctx.scale, ctx.n_head = causal, scale, n_head
+    # An unused output's cotangent stays None (no zeros to fold in).
+    ctx.set_materialize_grads(False)
 
 
-def _backward(ctx, do, dlse=None):
+def _backward(ctx, do, dlse):
     q, k, v, o, lse = ctx.saved_tensors
-    do = do.contiguous()
+    args = (ctx.causal, ctx.scale)
+    do = torch.zeros_like(o) if do is None else do.contiguous()
     # delta = rowsum(dO * O); an LSE cotangent folds in here, since
     # d lse / d s = P turns dS = P * (dP - delta + dLSE) into the same
     # kernels with delta - dLSE.
@@ -243,33 +297,37 @@ def _backward(ctx, do, dlse=None):
     if dlse is not None:
         delta = delta - dlse.float()
     delta = delta.contiguous()
-    dq = flash_dq(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
-    dk, dv = flash_dkv(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
-    return dq, dk, dv
+    if _use_ops():
+        dq = FLASH_DQ_OP(q, k, v, do, lse, delta, *args, ctx.n_head)
+        dk, dv = FLASH_DKV_OP(q, k, v, do, lse, delta, *args, ctx.n_head)
+    else:
+        dq = flash_dq(q, k, v, do, lse, delta, *args)
+        dk, dv = flash_dkv(q, k, v, do, lse, delta, *args)
+    return dq, dk, dv, None, None, None
+
+
+_flash_fwd_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 class _Flash(torch.autograd.Function):
-    """Flattened [BH, T, D] attention, O only (the ``_flash`` VJP)."""
+    """The direct path: (O, LSE) of flattened [BH, T, D] attention, both
+    differentiable, through the wrappers with the ops' own backward (the
+    two ``custom_vjp``s of the JAX package in one)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        return _forward(ctx, q, k, v, causal, scale)[0]
+    def forward(ctx, q, k, v, causal, scale, n_head):
+        o, lse = flash_fwd(q, k, v, causal, scale)
+        _setup_context(ctx, (q, k, v, causal, scale, n_head), (o, lse))
+        return o, lse
 
-    @staticmethod
-    def backward(ctx, do):
-        return (*_backward(ctx, do), None, None)
+    backward = staticmethod(_backward)
 
 
-class _FlashWithLse(torch.autograd.Function):
-    """(O, LSE), both differentiable (the ``_flash_o_lse`` VJP)."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        return _forward(ctx, q, k, v, causal, scale)
-
-    @staticmethod
-    def backward(ctx, do, dlse):
-        return (*_backward(ctx, do, dlse), None, None)
+def _attend(q, k, v, causal: bool, scale: float, n_head: int):
+    if _use_ops():
+        return FLASH_FWD_OP(_flat(q), _flat(k), _flat(v), causal, scale,
+                            n_head)
+    return _Flash.apply(_flat(q), _flat(k), _flat(v), causal, scale, n_head)
 
 
 def _resolve_blocks(T: int, block_q: Optional[int],
@@ -293,7 +351,7 @@ def flash_attention(q, k, v, causal: bool = True,
     B, H, T, D = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     _resolve_blocks(T, block_q, block_k)
-    o = _Flash.apply(_flat(q), _flat(k), _flat(v), causal, scale)
+    o, _ = _attend(q, k, v, causal, scale, H)
     return o.reshape(B, H, T, D)
 
 
@@ -306,5 +364,5 @@ def flash_attention_with_lse(q, k, v, causal: bool = True,
     B, H, T, D = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     _resolve_blocks(T, block_q, block_k)
-    o, lse = _FlashWithLse.apply(_flat(q), _flat(k), _flat(v), causal, scale)
+    o, lse = _attend(q, k, v, causal, scale, H)
     return o.reshape(B, H, T, D), lse.reshape(B, H, T)

@@ -1,22 +1,194 @@
-"""Sync-free gradient accumulation: the port of ``build_ga_step`` from
+"""Sync-free analysis and gradient accumulation: the port of
 ``tepdist_tpu/parallel/sync_free.py``.
 
-The reference decomposition ENTRY -> {GAInit, CG, GA, AG} becomes one
-Python step: GAInit = zero accumulators shaped like the params, CG = the
-per-micro-batch ``grad_fn``, GA = an add into the accumulator, AG = the
-optimizer apply after the loop. Ported: the fidelity path and the
-FP16_COMM bf16 compress path. Not ported: ZeRO, the int8 comm dtype and
-``analyze_sync_free`` (the micro count is passed in).
+The analysis (reference parity: ``SyncFreeSplittingAnalysis``) finds a
+batch-dim split of the captured step graph whose largest part (forward and
+backward up to the gradient sync points) runs per micro-batch without
+cross-replica synchronization, and sizes ``num_micro_batches`` from the
+activation-memory estimate. It runs on the port's captured aten graph
+(``graph/fx_graph.py``) with the port's strategy rules.
+
+The decomposition ENTRY -> {GAInit, CG, GA, AG} becomes one Python step
+(``build_ga_step``): GAInit = zero accumulators shaped like the params,
+CG = the per-micro-batch ``grad_fn``, GA = an add into the accumulator,
+AG = the optimizer apply after the loop. Ported: the fidelity path and the
+FP16_COMM bf16 compress path. Not ported: ZeRO and the int8 comm dtype.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+import dataclasses
+import logging
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from tepdist_tpu_torch.core.dist_spec import DimStrategy
 from tepdist_tpu_torch.core.service_env import ServiceEnv
 from tepdist_tpu_torch.core.tree import tree_leaves, tree_map
+from tepdist_tpu_torch.graph.cost import val_bytes
+from tepdist_tpu_torch.graph.fx_graph import FxGraph, Var, var_val
+from tepdist_tpu_torch.parallel.liveness import optimize_liveness
+from tepdist_tpu_torch.parallel.performance_utils import chip_spec
+from tepdist_tpu_torch.parallel.strategy_utils import StrategyUtil
+
+log = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass
+class SyncFreeResult:
+    """Decision record of the analysis."""
+
+    batch_arg_indices: List[int]     # flat invar indices carrying the batch dim
+    batch_dims: Dict[int, int]       # arg index -> batch dim
+    sync_free_fraction: float        # fraction of flops in the sync-free set
+    num_micro_batches: int
+    peak_activation_bytes: float
+
+
+def find_sync_free_split(
+    graph: FxGraph, candidate_args: Optional[List[int]] = None
+) -> Optional[Tuple[Dict[int, int], float]]:
+    """Find batch dims on data args such that forward propagation reaches a
+    maximal flop fraction with partials only at gradient-shaped sinks
+    (reference: SearchForMostSyncFreeInsts).
+
+    Tries dim 0 of each non-matrix arg set; returns ({arg: dim}, fraction)."""
+    n_probe = 2  # split factor used only for feasibility probing
+    best: Optional[Tuple[Dict[int, int], float]] = None
+    indices = candidate_args
+    if indices is None:
+        indices = list(range(len(graph.invars)))
+    # Group candidate args by their dim-0 size: batch args share it.
+    by_size: Dict[int, List[int]] = {}
+    for i in indices:
+        shape = tuple(var_val(graph.invars[i]).shape)
+        if len(shape) >= 1 and shape[0] % n_probe == 0:
+            by_size.setdefault(shape[0], []).append(i)
+    for size, args in by_size.items():
+        # Args whose dim 0 merely coincides with the batch size (e.g. a
+        # [batch_like, d] weight) poison the split: drop any arg whose
+        # inclusion lowers the sync-free fraction.
+        assign = {i: 0 for i in args}
+        frac = _probe_fraction(graph, assign, n_probe)
+        for i in list(assign):
+            if len(assign) == 1:
+                break
+            trial = {k: v for k, v in assign.items() if k != i}
+            trial_frac = _probe_fraction(graph, trial, n_probe)
+            if trial_frac > frac:
+                assign, frac = trial, trial_frac
+        if frac > 0 and (best is None or frac > best[1]):
+            best = (assign, frac)
+    return best
+
+
+def _probe_fraction(graph: FxGraph, assign: Dict[int, int], n: int) -> float:
+    """Forward-propagate the candidate split; return flop fraction of nodes
+    that stay split or partial (i.e. run per-micro-batch sync-free)."""
+    value: Dict[Var, DimStrategy] = {}
+    for i, d in assign.items():
+        value[graph.invars[i]] = DimStrategy.split_on(d, n)
+    covered = 0.0
+    total = graph.total_flops() or 1.0
+    for node in graph.nodes:
+        known = {}
+        for k, a in enumerate(node.invars):
+            if a in value and (value[a].is_split() or value[a].partial):
+                known[k] = value[a]
+        if not known:
+            continue
+        r = StrategyUtil.forward_infer(node, known, n)
+        if r is None and len(known) > 1:
+            r = StrategyUtil.forward_infer(
+                node, dict([next(iter(known.items()))]), n)
+        if r is None:
+            continue
+        moved = False
+        for ov, s in zip(node.outvars, r.out_strategies):
+            if ov is not None and (s.is_split() or s.partial):
+                value[ov] = s
+                moved = True
+        if moved:
+            covered += node.flops
+    return covered / total
+
+
+def estimate_peak_activation_bytes(graph: FxGraph) -> float:
+    """Liveness-based peak estimate: sweep program order, tracking bytes of
+    values whose last use is later (reference: memory feasibility input to
+    the analysis / Evaluator). Every node output counts, views and aliases
+    too, as the reference counts its reshape/transpose/broadcast outputs;
+    the graph's inputs (params, batch) do not."""
+    last_use: Dict[Var, int] = {}
+    for node in graph.nodes:
+        for a in node.invars:
+            last_use[a] = node.id
+    for a in graph.outvars:
+        if a is not None:
+            last_use[a] = len(graph.nodes) + 1
+    live = 0.0
+    peak = 0.0
+    expiry: Dict[int, float] = {}
+    for node in graph.nodes:
+        for ov in node.outvars:
+            if ov is not None and ov in last_use:
+                b = val_bytes(var_val(ov))
+                live += b
+                expiry[last_use[ov]] = expiry.get(last_use[ov], 0.0) + b
+        peak = max(peak, live)
+        live -= expiry.pop(node.id, 0.0)
+    return peak
+
+
+def choose_num_micro_batches(
+    graph: FxGraph,
+    batch_size: int,
+    hbm_budget_bytes: Optional[float] = None,
+    usage_ratio: float = 0.6,
+) -> int:
+    env = ServiceEnv.get()
+    if env.num_micro_batches > 0:
+        return env.num_micro_batches
+    if hbm_budget_bytes is None:
+        hbm_budget_bytes = chip_spec().hbm_gb * 1e9
+    peak = estimate_peak_activation_bytes(graph)
+    budget = hbm_budget_bytes * usage_ratio
+    n = 1
+    while peak / n > budget and n < batch_size:
+        n *= 2
+    while batch_size % n != 0 and n > 1:
+        n //= 2
+    return max(1, n)
+
+
+def analyze_sync_free(
+    graph: FxGraph,
+    batch_size: int,
+    candidate_args: Optional[List[int]] = None,
+    hbm_budget_bytes: Optional[float] = None,
+) -> SyncFreeResult:
+    # Liveness pre-pass (reference: HloLivenessOptimizer runs before the
+    # planner): the peak estimate below sees shortened live ranges for
+    # cheap duplicable producers.
+    graph = optimize_liveness(graph)
+    found = find_sync_free_split(graph, candidate_args)
+    if found is None:
+        return SyncFreeResult([], {}, 0.0, 1, estimate_peak_activation_bytes(graph))
+    assign, frac = found
+    n = choose_num_micro_batches(graph, batch_size, hbm_budget_bytes)
+    return SyncFreeResult(
+        batch_arg_indices=sorted(assign),
+        batch_dims=assign,
+        sync_free_fraction=frac,
+        num_micro_batches=n,
+        peak_activation_bytes=estimate_peak_activation_bytes(graph),
+    )
+
+
+# --------------------------------------------------------------------------
+# The decomposition (constructive form)
+# --------------------------------------------------------------------------
 
 
 def _compress(grads):

@@ -47,6 +47,8 @@ from tepdist_tpu_torch.runtime.checkpoint import (
 )
 from tepdist_tpu_torch.train import plan_training
 
+torch.set_num_threads(2)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LR = 1e-3
 

@@ -15,6 +15,8 @@ from tepdist_tpu_torch import convert
 from tepdist_tpu_torch.core.tree import tree_leaves
 from tepdist_tpu_torch.models import gpt2 as tgpt2
 
+torch.set_num_threads(2)
+
 CFG = dataclasses.replace(jgpt2.CONFIGS["test"], dtype=jnp.bfloat16)
 CFG_T = dataclasses.replace(tgpt2.CONFIGS["test"], dtype=torch.bfloat16)
 

@@ -16,8 +16,11 @@ import math
 
 import pytest
 import torch
+import torch.utils._python_dispatch
 
 from tepdist_tpu_torch.ops import flash_attention as tfa
+
+torch.set_num_threads(2)
 
 pytestmark = pytest.mark.cuda
 NAMES = ("o", "lse", "dq", "dk", "dv")
@@ -96,6 +99,42 @@ def test_autograd_op_launches_the_kernels(cuda):
                                  "flash_dkv": 1}
     for name, a, b in zip(NAMES, got, ref):
         _assert_close(a, b, False, name)
+
+
+class _Passthrough(torch.utils._python_dispatch.TorchDispatchMode):
+    """An active dispatch mode that changes nothing: the flash attention
+    takes its op path (``tepdist::flash_*``) under it."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_op_path_equals_direct_path(cuda, dtype):
+    """Forward and backward (with a dLSE cotangent) through the custom
+    ops and straight through the wrappers: the same bits and the same
+    launches of each kernel."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v, do = (torch.randn(2, 25, 300, 64, generator=gen, device=cuda)
+                   .to(dtype) for _ in range(4))
+    dlse = torch.randn(2, 25, 300, generator=gen, device=cuda)
+
+    def run():
+        tfa.reset_launch_counts()
+        xs = [t.clone().requires_grad_() for t in (q, k, v)]
+        o, lse = tfa.flash_attention_with_lse(*xs, causal=True)
+        loss = (o.float() * do.float()).sum() + (lse * dlse).sum()
+        out = [t.detach() for t in (o, lse, *torch.autograd.grad(loss, xs))]
+        torch.cuda.synchronize()
+        return out, dict(tfa.launch_counts)
+
+    direct, direct_launches = run()
+    with _Passthrough():
+        via_ops, op_launches = run()
+    assert direct_launches == op_launches == {
+        "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    for name, a, b in zip(NAMES, direct, via_ops):
+        assert torch.equal(a, b), name
 
 
 def test_wrong_device_mix_raises(cuda):

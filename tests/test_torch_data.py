@@ -19,6 +19,8 @@ from tepdist_tpu_torch.data import (
     pack_token_file,
 )
 
+torch.set_num_threads(2)
+
 
 def test_pack_and_sample(tmp_path):
     toks = np.arange(10_000, dtype=np.int64) % 50257

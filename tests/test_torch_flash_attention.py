@@ -21,6 +21,8 @@ import torch
 from tepdist_tpu.ops.pallas import flash_attention as jfa
 from tepdist_tpu_torch.ops import flash_attention as tfa
 
+torch.set_num_threads(2)
+
 ATOL, RTOL = 2e-5, 1e-4
 
 

@@ -27,6 +27,8 @@ from tepdist_tpu_torch import convert
 from tepdist_tpu_torch.core.tree import tree_leaves
 from tepdist_tpu_torch.models import gpt2 as tgpt2
 
+torch.set_num_threads(2)
+
 FLASH = dict(attn="flash", remat=True, loss_chunk=48)  # 4*32 tokens: ragged
 
 

@@ -1,14 +1,18 @@
 """The port imports neither jax nor anything of tepdist_tpu, nor
 ml_dtypes (the card's machine has none): every module of
 tepdist_tpu_torch, and chip_smoke.py, imported in a fresh interpreter (the
-pytest process has jax loaded already); and the telemetry and serving
-packages each imported alone."""
+pytest process has jax loaded already); the telemetry, serving and graph
+packages each imported alone; and each module of the planner imported
+alone."""
 
 import os
 import subprocess
 import sys
 
 import pytest
+import torch
+
+torch.set_num_threads(2)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -52,12 +56,39 @@ sys.exit(1 if bad or not names else 0)
 
 
 @pytest.mark.parametrize("package", ["tepdist_tpu_torch.telemetry",
-                                     "tepdist_tpu_torch.serving"])
+                                     "tepdist_tpu_torch.serving",
+                                     "tepdist_tpu_torch.graph"])
 def test_subpackage_imports_no_jax(package):
-    """Each of the port's telemetry and serving packages, with every one
-    of its modules, imported alone in a fresh interpreter."""
+    """Each of the port's telemetry, serving and graph packages, with
+    every one of its modules, imported alone in a fresh interpreter."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _SUBPACKAGE_PROBE, package],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+_MODULE_PROBE = """
+import importlib, sys
+importlib.import_module(sys.argv[1])
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "tepdist_tpu."))
+             or m in ("tepdist_tpu", "ml_dtypes", "optax"))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+@pytest.mark.parametrize("module", [
+    "tepdist_tpu_torch.core.par_type", "tepdist_tpu_torch.core.dist_spec",
+    "tepdist_tpu_torch.core.mesh", "tepdist_tpu_torch.parallel.strategy_utils",
+    "tepdist_tpu_torch.parallel.liveness",
+    "tepdist_tpu_torch.parallel.performance_utils"])
+def test_planner_module_imports_no_jax(module):
+    """Each module of the planner's first part imported alone in a fresh
+    interpreter."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _MODULE_PROBE, module],
                          cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr

@@ -30,6 +30,8 @@ import torch
 from tepdist_tpu_torch.ops import _build
 from tepdist_tpu_torch.ops import flash_attention as tfa
 
+torch.set_num_threads(2)
+
 EMU = Path(__file__).resolve().parent / "cuda_emu"
 NAMES = ("flash_fwd", "flash_dq", "flash_dkv")
 

@@ -33,6 +33,8 @@ from tepdist_tpu_torch.models import llama as tllama
 from tepdist_tpu_torch.optim import adamw
 from tepdist_tpu_torch.train import plan_training
 
+torch.set_num_threads(2)
+
 
 def _cfgs(attn, dtype_j=jnp.float32, dtype_t=torch.float32):
     return (dataclasses.replace(jllama.CONFIGS["test"], attn=attn,

@@ -24,8 +24,11 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from tepdist_tpu_torch.ops import _build
+
+torch.set_num_threads(2)
 
 EMU = Path(__file__).resolve().parent / "cuda_emu"
 

@@ -26,6 +26,8 @@ from tepdist_tpu_torch.models import gpt_moe as tmoe
 from tepdist_tpu_torch.models import mlp as tmlp
 from tepdist_tpu_torch.models import wide_resnet as twrn
 
+torch.set_num_threads(2)
+
 
 def _compare(jloss, tloss, params, *inputs):
     """Loss and grads of ``jloss(params, *inputs)`` (JAX, numpy params)

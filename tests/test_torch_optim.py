@@ -31,6 +31,8 @@ from tepdist_tpu_torch import convert, optim
 from tepdist_tpu_torch.core.tree import tree_leaves
 from tepdist_tpu_torch.optim import adamw_bf16
 
+torch.set_num_threads(2)
+
 LR = 1e-2
 
 

@@ -18,6 +18,8 @@ from tepdist_tpu.models import sampling as jsampling
 from tepdist_tpu_torch import convert
 from tepdist_tpu_torch.models import gpt2, sampling
 
+torch.set_num_threads(2)
+
 CFG = gpt2.CONFIGS["test"]
 JCFG = jgpt2.CONFIGS["test"]
 

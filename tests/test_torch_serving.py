@@ -46,6 +46,8 @@ from tepdist_tpu_torch.serving import ServingEngine, ServingSupervisor
 from tepdist_tpu_torch.serving import kv_cache as tkv
 from tepdist_tpu_torch.serving import paged_kv as tpk
 
+torch.set_num_threads(2)
+
 CFG = gpt2.CONFIGS["test"]
 JCFG = jgpt2.CONFIGS["test"]
 RL2 = 1e-5

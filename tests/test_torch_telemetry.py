@@ -26,6 +26,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from tepdist_tpu.telemetry import export as jexport
 from tepdist_tpu.telemetry import fidelity as jfidelity
@@ -44,6 +45,8 @@ from tepdist_tpu_torch.telemetry import ledger as tledger
 from tepdist_tpu_torch.telemetry import observatory as tobservatory
 from tepdist_tpu_torch.telemetry import trace as ttrace
 from tepdist_tpu_torch.telemetry import watchtower as twatch
+
+torch.set_num_threads(2)
 
 # The packages export a ``metrics()`` function under the module's name.
 jmetrics = importlib.import_module("tepdist_tpu.telemetry.metrics")

@@ -28,6 +28,8 @@ from tepdist_tpu_torch.optim import adamw_bf16
 from tepdist_tpu_torch.parallel.sync_free import build_ga_step
 from tepdist_tpu_torch.train import plan_training
 
+torch.set_num_threads(2)
+
 LR = 1e-3
 
 

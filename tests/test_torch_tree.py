@@ -9,9 +9,12 @@ from typing import NamedTuple
 import jax
 import optax
 import pytest
+import torch
 
 from tepdist_tpu_torch.core.tree import (tree_leaves, tree_map,
                                          tree_structure, tree_unflatten)
+
+torch.set_num_threads(2)
 
 
 class State(NamedTuple):
