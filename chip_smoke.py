@@ -36,6 +36,20 @@ calls (``plan_training`` + ``plan.step``, ``plan.save``/``restore``,
    HBM_GB set to the memory free beside the state. A seventh step is
    profiled as the slice's is. Then each kernel against its plain
    version at the plan's shape [48/M*25, 1024, 64];
+5c. spmd_plan: the same model at full width (depth cut, SPMD_PLAN_CUT)
+   planned for 8 devices on the host, device-free: ``explore_parallelism``
+   (capture and search seconds, candidates per topology, the kinds left
+   out, the winner with its predicted step and memory feasibility, the
+   solver status per axis), then ``auto_parallel`` of the whole GA step
+   on data=8, which must split the token input and q, k and v of every
+   flash forward on dim 0;
+5d. spmd_step: the plan phase's model, recipe, seed and batches through
+   the lowering: ``plan_training(topology=data 1)`` on a one-rank NCCL
+   world captures the whole GA step, plans it and runs it as an fx
+   interpreter on DTensors, the kernels launched through their ops; 6
+   steps with losses within SPMD_STEP_LOSS_RTOL of the eager plan's, the
+   sixth below the first, every kernel launched; step seconds, peak
+   memory and the involuntary-remat count;
 6. llama: Llama 1B at full width and depth (bench.py's recipe: batch 4,
    seq 512, ``adamw(1e-4)``) for 6 steps on the bytes of the repository's
    text files, packed with ``data/tokens.py`` and fed through the
@@ -684,7 +698,232 @@ def phase_plan():
         raise SystemExit(f"chip_smoke: launches {per_step} != {want}")
     _profile_step("GPT-2 1.5B plan", lambda: plan.step(tokens),
                   sorted(steady)[len(steady) // 2])
-    return launches, PLAN_BATCH // M
+    return launches, PLAN_BATCH // M, losses
+
+
+# spmd_plan phase: the SPMD search for 8 devices (the reference test
+# mesh's size) runs on the card's host, device-free. Its depth is cut: the
+# search prices every node of the captured step once per mesh axis and
+# candidate, and at 48 layers the exploration alone took 792 s on the
+# H100 machine's host (PERF.md section 6), two thirds of this script's
+# 1200 s limit; at 4 layers it takes about 90 s.
+SPMD_PLAN_DEVICES, SPMD_PLAN_LAYERS = 8, 4
+SPMD_PLAN_CUT = ("depth cut from 48 to 4 layers: at 48 the exploration "
+                 "alone took 792 s of the run's 1200 s limit")
+# spmd_step phase: the lowered step against the plan phase's eager
+# losses (same seed and batches). The capture runs the models' GELU as its
+# chain of primitives where the eager step runs the fused op, so bf16
+# values round at other points: the parity phase holds one such step's
+# loss to 1e-3 relative; over six Adam steps allow twice that.
+SPMD_STEP_LOSS_RTOL = 2e-3
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_spmd_plan():
+    """GPT-2 1.5B at full width (depth cut, SPMD_PLAN_CUT), bench.py's
+    batch 48 x 1024: ``explore_parallelism`` over the SPMD candidates for
+    8 devices, then ``auto_parallel`` in cost mode of the whole GA step
+    (optimizer apply included) on ``MeshTopology([("data", 8)])``. Both
+    plan on the card's host from fake tensors; nothing runs on 8 devices.
+    The data-8 plan must split the token input and q, k and v of every
+    flash forward on dim 0."""
+    import torch
+
+    from tepdist_tpu_torch import train
+    from tepdist_tpu_torch.core.dist_spec import DimStrategy
+    from tepdist_tpu_torch.core.mesh import MeshTopology
+    from tepdist_tpu_torch.core.tree import tree_leaves
+    from tepdist_tpu_torch.models import gpt2
+    from tepdist_tpu_torch.optim import adamw_bf16
+    from tepdist_tpu_torch.parallel.auto_parallel import auto_parallel
+    from tepdist_tpu_torch.parallel.exploration import candidate_summary
+    from tepdist_tpu_torch.parallel.performance_utils import chip_spec
+    from tepdist_tpu_torch.parallel.sync_free import build_ga_step
+
+    cfg = _config(SPMD_PLAN_LAYERS)
+    params = gpt2.stacked_init_params(cfg, seed=0, device="cuda")
+    tokens = gpt2.fake_batch(cfg, PLAN_BATCH, SEQ, seed=0, device="cuda")
+
+    def loss_fn(p, t):
+        return gpt2.loss_fn_stacked(p, t, cfg)
+
+    t0 = time.perf_counter()
+    best = train.explore_parallelism(loss_fn, params, tokens,
+                                     n_devices=SPMD_PLAN_DEVICES)
+    explore_s = time.perf_counter() - t0
+    phases = (best.get("report") or {}).get("phases", {})
+    per_topology = {}
+    for c in best["candidates"]:
+        key = str(c["topology"])
+        per_topology[key] = per_topology.get(key, 0) + 1
+    status = {str(c["topology"]): [g.ilp_status for g in c["strategies"]]
+              for c in best["candidates"]
+              if not c.get("comm_dtype") and not c.get("zero")}
+    cost = best["cost"]
+    # The token input's strategy in the fidelity data-8 candidate, planned
+    # without annotations (the step graph's last placeholder).
+    data8 = next(c for c in best["candidates"]
+                 if c["topology"].device_axes() == [
+                     ("data", SPMD_PLAN_DEVICES)]
+                 and not c.get("comm_dtype") and not c.get("zero"))
+    gs = data8["strategies"][0]
+    placeholders = [v for v in gs.var_strategies if v.op == "placeholder"]
+    order = {v: i for i, v in enumerate(placeholders[0].graph.nodes)}
+    token_unannotated = str(gs.var_strategies[max(placeholders,
+                                                  key=order.get)])
+    emit({"phase": "spmd_plan", "part": "explore", "model": "GPT-2 1.5B",
+          "n_layer": cfg.n_layer, "cut": SPMD_PLAN_CUT,
+          "n_embd": cfg.n_embd, "n_head": cfg.n_head,
+          "vocab": cfg.vocab_size, "batch": PLAN_BATCH, "seq": SEQ,
+          "n_devices": SPMD_PLAN_DEVICES, "chip": chip_spec().name,
+          "explore_seconds": explore_s,
+          "capture_seconds": phases.get("trace_ms", 0.0) / 1e3,
+          "search_seconds": phases.get("spmd_ms", 0.0) / 1e3,
+          "candidates_per_topology": per_topology,
+          "excluded_kinds": best.get("excluded_kinds"),
+          "winner": {"topology": str(best["topology"]),
+                     "comm_dtype": best.get("comm_dtype", ""),
+                     "zero": bool(best.get("zero", False))},
+          "predicted_step_seconds": cost.total_duration,
+          "memory_feasible": cost.memory_feasible,
+          "peak_bytes_per_device": cost.peak_bytes_per_device,
+          "solver_status": status,
+          "data8_token_strategy_unannotated": token_unannotated,
+          "ranked": candidate_summary(best["candidates"], best)[:6]})
+    if best.get("excluded_kinds") != ["seq", "pipeline"]:
+        raise SystemExit("chip_smoke: exploration did not record the "
+                         "kinds it left out")
+
+    # The whole GA step on data=8, the token input annotated as split
+    # over data (the batch annotation a data-parallel user gives): the
+    # cost model leaves a token input replicated when a glue chain from
+    # it to the first layer is free in its objective (ROADMAP C5).
+    opt = adamw_bf16(1e-4)
+    opt_state = opt.init(params)
+    step = build_ga_step(train.value_and_grad(loss_fn),
+                         lambda p, s_, g: (p, opt.apply(p, g, s_)), 1)
+    n_state = len(tree_leaves((params, opt_state)))
+    t0 = time.perf_counter()
+    plan = auto_parallel(
+        step, MeshTopology([("data", SPMD_PLAN_DEVICES)]), params,
+        opt_state, tokens, mode="cost",
+        state_alias={1 + k: k for k in range(n_state)},
+        annotations={n_state: {"data": DimStrategy.split_on(
+            0, SPMD_PLAN_DEVICES)}})
+    plan_s = time.perf_counter() - t0
+    ts = plan.sharding_plan.var_strategies
+    flash = [n for n in plan.graph.nodes if n.prim == "flash_fwd"]
+    qkv_split = [all(ts[v].get("data").is_split()
+                     and ts[v].get("data").partition_dim == 0
+                     for v in n.invars[:3]) for n in flash]
+    token_spec = str(plan.sharding_plan.in_specs[n_state])
+    emit({"phase": "spmd_plan", "part": "data8", "n_layer": cfg.n_layer,
+          "auto_parallel_seconds": plan_s,
+          "graph_nodes": len(plan.graph),
+          "solver_status": [g.ilp_status for g in plan.strategies],
+          "token_placements": token_spec,
+          "flash_fwd_nodes": len(flash),
+          "flash_qkv_split_dim0": sum(qkv_split),
+          "split_state_leaves": sum(
+              1 for sp in plan.sharding_plan.in_specs[:n_state]
+              if "Shard" in str(sp))})
+    if token_spec != "(Shard(dim=0),)":
+        raise SystemExit(f"chip_smoke: the data-8 plan does not split the "
+                         f"tokens on dim 0: {token_spec}")
+    if not flash or not all(qkv_split):
+        raise SystemExit("chip_smoke: a flash op's q, k or v is not split "
+                         f"on dim 0 ({sum(qkv_split)}/{len(flash)})")
+    del plan, params, opt_state
+    torch.cuda.empty_cache()
+
+
+def phase_spmd_step(micro_batches: int, eager_losses):
+    """GPT-2 1.5B at full width and depth, the plan phase's recipe, seed
+    and batches, through the lowering: ``plan_training(topology=data 1)``
+    on a one-rank NCCL world captures the whole GA step, plans it and runs
+    it as an fx interpreter on DTensors, the flash kernels launched
+    through their ops. Six steps; the losses held to the eager plan's.
+    Returns the kernels' launches over the six steps."""
+    import torch
+    import torch.distributed as dist
+
+    from tepdist_tpu_torch import train
+    from tepdist_tpu_torch.core.mesh import MeshTopology
+    from tepdist_tpu_torch.models import gpt2
+    from tepdist_tpu_torch.ops import flash_attention as fa
+    from tepdist_tpu_torch.optim import adamw_bf16
+
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        cfg = _config(48)
+        L = cfg.n_layer
+        params = gpt2.stacked_init_params(cfg, seed=0, device="cuda")
+        tokens = gpt2.fake_batch(cfg, PLAN_BATCH, SEQ, seed=0,
+                                 device="cuda")
+        t0 = time.perf_counter()
+        plan = train.plan_training(
+            lambda p, t: gpt2.loss_fn_stacked(p, t, cfg), adamw_bf16(1e-4),
+            params, tokens, num_micro_batches=micro_batches,
+            topology=MeshTopology([("data", 1)]))
+        setup_s = time.perf_counter() - t0
+        del params
+        pp = plan.parallel_plan
+        want = {"flash_fwd": 2 * L * micro_batches,
+                "flash_dq": L * micro_batches,
+                "flash_dkv": L * micro_batches}
+        torch.cuda.reset_peak_memory_stats()
+        losses, seconds, per_step = [], [], []
+        fa.reset_launch_counts()
+        for _ in range(STEPS):
+            before = dict(fa.launch_counts)
+            t0 = time.perf_counter()
+            losses.append(plan.step(tokens))   # returns after a device sync
+            seconds.append(time.perf_counter() - t0)
+            per_step.append({n: fa.launch_counts[n] - before[n]
+                             for n in want})
+        launches = dict(fa.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        remats = plan.involuntary_remats(tokens)
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, eager_losses)]
+        steady = seconds[1:]
+        emit({"phase": "spmd_step", "model": "GPT-2 1.5B", "n_layer": L,
+              "batch": PLAN_BATCH, "seq": SEQ, "cut": "none",
+              "topology": str(plan.topology),
+              "micro_batches": micro_batches,
+              "setup_seconds": setup_s, "graph_nodes": len(pp.graph),
+              "solver_status": [g.ilp_status for g in pp.strategies],
+              "losses": losses, "eager_losses": list(eager_losses),
+              "loss_rel_diff": rel, "loss_rtol": SPMD_STEP_LOSS_RTOL,
+              "step_seconds": seconds,
+              "tokens_per_s": PLAN_BATCH * SEQ * len(steady) / sum(steady),
+              "max_memory_allocated_bytes": peak,
+              "launches_per_step": per_step, "expected_per_step": want,
+              "involuntary_remats": len(remats)})
+        if not all(math.isfinite(x) for x in losses):
+            raise SystemExit(f"chip_smoke: non-finite loss {losses}")
+        if max(rel) > SPMD_STEP_LOSS_RTOL:
+            raise SystemExit(f"chip_smoke: lowered losses {losses} differ "
+                             f"from the eager plan's {eager_losses}")
+        if not losses[-1] < losses[0]:
+            raise SystemExit(f"chip_smoke: loss did not fall {losses}")
+        if not all(launches[n] for n in want):
+            raise SystemExit(f"chip_smoke: a flash kernel was not launched "
+                             f"through the lowering {launches}")
+        del plan
+        return launches
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
 
 
 # Device-time groups of the profiled step, by kernel name (first match).
@@ -1581,12 +1820,14 @@ def main() -> int:
     gpt2_case, llama_case, remat_case = phase_kernels()
     phase_parity()
     gpt2_launches = phase_slice()
-    plan_launches, plan_mb = phase_plan()
+    plan_launches, plan_mb, plan_losses = phase_plan()
     torch.cuda.empty_cache()
     # The plan path's kernels at the micro batch it chose.
     plan_case = _checked_case("plan_path", dict(
         B=plan_mb, H=25, T=SEQ, D=64, dtype=torch.bfloat16, causal=True),
         seed=200, time_it=True)
+    phase_spmd_plan()
+    spmd_launches = phase_spmd_step(PLAN_BATCH // plan_mb, plan_losses)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         llama_launches, save = phase_llama(workdir)
@@ -1607,7 +1848,10 @@ def main() -> int:
             ("[8*25, 1024, 64] bf16 causal (GPT-2 remat phase, 5 runs)",
              remat_case, remat_launches),
             (f"[{plan_mb}*25, 1024, 64] bf16 causal (GPT-2 1.5B plan "
-             f"phase, batch {PLAN_BATCH})", plan_case, plan_launches)):
+             f"phase, batch {PLAN_BATCH})", plan_case, plan_launches),
+            (f"[{plan_mb}*25, 1024, 64] bf16 causal (GPT-2 1.5B "
+             f"spmd_step phase: the lowered step on DTensors)", plan_case,
+             spmd_launches)):
         for name, (source, replaces) in KERNELS.items():
             r = case[name]
             rows.append({"name": name, "shape": shape, "route": "cuda",

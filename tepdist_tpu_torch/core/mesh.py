@@ -12,8 +12,9 @@ device-consuming ordinals are the named axes of the device mesh, and
 ``dev_groups`` gives the participants of a collective over one axis (a
 process group's ranks). Shared ("virtual") ordinals such as micro-batching
 have no devices — they index time (the GA loop), exactly like TePDist's
-``share_dev_flags=true`` ordinals. The lowering to a device mesh is not
-ported yet (see ``MeshTopology.to_jax_mesh``).
+``share_dev_flags=true`` ordinals. ``MeshTopology.to_device_mesh`` lowers
+the device axes to a ``torch.distributed`` device mesh (the JAX package's
+``to_jax_mesh``).
 """
 
 from __future__ import annotations
@@ -159,15 +160,47 @@ class MeshTopology:
         return [sorted(g) for g in groups.values()]
 
     # -- lowering ---------------------------------------------------------
-    def to_jax_mesh(self, devices: Optional[Sequence] = None):
-        """No counterpart yet. The JAX package builds a
-        ``jax.sharding.Mesh`` here; the port's lowering (a
-        ``torch.distributed`` device mesh with DTensor placements, or
-        explicit NCCL collectives) comes with the SPMD planner's second
-        part (ROADMAP item 12)."""
-        raise NotImplementedError(
-            "MeshTopology.to_jax_mesh: the port's device-mesh lowering "
-            "comes with the SPMD planner (ROADMAP item 12)")
+    def rank_grid(self) -> List:
+        """The process ranks of the device mesh as a nested list over the
+        device axes in declaration order: ``placement_layout`` orders them
+        from slowest- to fastest-varying over the linear rank space, as
+        the JAX package orders its device list."""
+        import numpy as np
+
+        n = self.num_devices
+        layout_sizes = [self.split_nums[o] for o in self.placement_layout]
+        grid = np.arange(n).reshape(layout_sizes or ())
+        decl_pos = {o: i for i, o in enumerate(self.placement_layout)}
+        perm = [decl_pos[o] for o in self._dev_ordinals]
+        if layout_sizes:
+            grid = np.transpose(grid, perm)
+        return grid.tolist()
+
+    def to_device_mesh(self, device_type: str = "cuda"):
+        """A ``torch.distributed`` ``DeviceMesh`` over the device-consuming
+        ordinals, named by ``device_axes()`` (a shared time axis such as
+        ``micro`` is not a mesh dim). Needs an initialized process group
+        of ``num_devices`` ranks; the reference builds a
+        ``jax.sharding.Mesh`` here (``to_jax_mesh``)."""
+        import torch
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+
+        n = self.num_devices
+        if not dist.is_initialized():
+            raise RuntimeError(
+                "to_device_mesh needs an initialized torch.distributed "
+                f"process group of {n} ranks")
+        world = dist.get_world_size()
+        if world != n:
+            raise ValueError(f"need {n} ranks, the process group has "
+                             f"{world}")
+        names = tuple(name for name, _ in self.device_axes())
+        if not names:
+            names = ("data",)
+        grid = self.rank_grid() if self._dev_ordinals else [0]
+        return DeviceMesh(device_type, torch.tensor(grid, dtype=torch.int),
+                          mesh_dim_names=names)
 
     def __str__(self) -> str:
         parts = []

@@ -115,6 +115,18 @@ def var_val(v) -> Any:
     return v.meta.get("val") if isinstance(v, fx.Node) else None
 
 
+def var_shape(v) -> Tuple[int, ...]:
+    """The shape of a var's value (``()`` for a non-tensor): the jaxpr
+    var's ``aval.shape``."""
+    val = var_val(v)
+    return tuple(val.shape) if isinstance(val, torch.Tensor) else ()
+
+
+def var_bytes(v) -> int:
+    """Bytes of a var's value: the reference's ``aval_bytes(v.aval)``."""
+    return val_bytes(var_val(v))
+
+
 class FxGraph:
     """Operand/user adjacency + costs over a captured aten graph."""
 
@@ -123,6 +135,16 @@ class FxGraph:
         graph = gm.graph
         self.invars: List[Var] = [n for n in graph.nodes
                                   if n.op == "placeholder"]
+        # Tensor constants of the capture (``get_attr`` nodes): the
+        # jaxpr's constvars.
+        self.constvars: List[Var] = []
+        for n in graph.nodes:
+            if n.op != "get_attr":
+                continue
+            if "val" not in n.meta:
+                n.meta["val"] = getattr(gm, n.target)
+            if isinstance(n.meta["val"], torch.Tensor):
+                self.constvars.append(n)
         out_node = next(n for n in reversed(graph.nodes) if n.op == "output")
         self.outvars: List[Optional[Var]] = [
             a if isinstance(a, fx.Node) else None
@@ -132,18 +154,27 @@ class FxGraph:
         self.producer: Dict[Var, Tuple[GraphNode, int]] = {}
         self.consumers: Dict[Var, List[GraphNode]] = {}
         by_fx: Dict[fx.Node, GraphNode] = {}
+        tensor_index: Dict[fx.Node, Dict[int, int]] = {}
         for n in graph.nodes:
             if n.op != "call_function":
                 continue
             if n.target is operator.getitem:
                 parent = by_fx[n.args[0]]
-                idx = n.args[1]
-                parent.outvars[idx] = n
-                self.producer[n] = (parent, idx)
+                # The index among the parent's tensor outputs (a tuple
+                # output may hold None, e.g. an unneeded input gradient).
+                idx = tensor_index[n.args[0]].get(n.args[1])
+                if idx is not None:
+                    parent.outvars[idx] = n
+                    self.producer[n] = (parent, idx)
                 continue
             val = n.meta.get("val")
             outs = tensor_vals(val)
             multi = isinstance(val, (tuple, list))
+            if multi:
+                tensor_index[n] = {
+                    i: k for k, i in enumerate(
+                        i for i, v in enumerate(val)
+                        if isinstance(v, torch.Tensor))}
             invars = flat_vars(n.args) + flat_vars(tuple(n.kwargs.values()))
             in_vals = [var_val(a) for a in invars]
             prim = op_name(n.target)
@@ -207,7 +238,54 @@ def _drop_detach(gm: fx.GraphModule) -> None:
     gm.recompile()
 
 
-def trace_graph(fn, *example_args, **example_kwargs):
+def _mutates(n: fx.Node) -> bool:
+    schema = getattr(n.target, "_schema", None)
+    return schema is not None and schema.is_mutable
+
+
+def _functionalize(gm: fx.GraphModule, leaves) -> fx.GraphModule:
+    """The value-semantics form of a captured step that updates state in
+    place: each input mutation becomes an output value (the step returns
+    its state leaves), and the copies back into the inputs that
+    ``torch.func.functionalize`` appends are dropped, so the graph is a
+    pure function of its placeholders, as a jaxpr is. The functional
+    ``copy(dst, src)`` it leaves (an in-place ``copy_`` of a whole
+    tensor) becomes a cast of ``src`` to ``dst``'s dtype, and
+    ``lift_fresh_copy`` a ``clone``."""
+    from torch.func import functionalize
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    aten = torch.ops.aten
+    fgm = make_fx(functionalize(gm, remove="mutations"),
+                  tracing_mode="fake")(*leaves)
+    graph = fgm.graph
+    for n in list(graph.nodes):
+        if n.op != "call_function":
+            continue
+        if n.target is aten.copy_.default and n.args[0].op == "placeholder":
+            if n.users:
+                n.replace_all_uses_with(n.args[1])
+            graph.erase_node(n)
+        elif n.target is aten.copy.default:
+            dst, src = n.args[0], n.args[1]
+            if tuple(var_shape(dst)) != tuple(var_shape(src)):
+                raise NotImplementedError(
+                    "functional copy with a broadcast source")
+            with graph.inserting_before(n):
+                new = graph.call_function(
+                    aten._to_copy.default, (src,),
+                    {"dtype": var_val(dst).dtype})
+            new.meta = dict(n.meta)
+            n.replace_all_uses_with(new)
+            graph.erase_node(n)
+        elif n.target is aten.lift_fresh_copy.default:
+            n.target = aten.clone.default
+    fgm.recompile()
+    return fgm
+
+
+def trace_graph(fn, *example_args, functional: bool = False,
+                **example_kwargs):
     """Capture ``fn`` to an :class:`FxGraph` plus the I/O tree structures.
 
     ``fn`` is called on fake tensors made from ``example_args`` (through
@@ -217,6 +295,13 @@ def trace_graph(fn, *example_args, **example_kwargs):
     ``(example_args, example_kwargs)`` in the reference's flat order
     (``core/tree.py`` flattens as ``jax.tree_util`` does), and its outputs
     the flat leaves of ``fn``'s result.
+
+    ``functional=True`` is for a step that updates its inputs in place
+    (the port's optimizers do): the graph is captured again through
+    ``torch.func.functionalize`` (:func:`_functionalize`), so every state
+    update is an output value and no node mutates, as in the reference's
+    jaxpr of a step that returns new state. The first capture records
+    autograd's backward as aten ops, which the second pass can take.
     """
     from torch.fx.experimental.proxy_tensor import make_fx
 
@@ -229,7 +314,10 @@ def trace_graph(fn, *example_args, **example_kwargs):
         out_tree.append(tree_structure(out))
         return tree_leaves(out)
 
-    gm = make_fx(flat_fn, tracing_mode="fake")(
-        *tree_leaves((example_args, example_kwargs)))
+    leaves = tree_leaves((example_args, example_kwargs))
+    gm = make_fx(flat_fn, tracing_mode="fake")(*leaves)
+    if functional and any(n.op == "call_function" and _mutates(n)
+                          for n in gm.graph.nodes):
+        gm = _functionalize(gm, leaves)
     _drop_detach(gm)
     return FxGraph(gm), template, out_tree[0]

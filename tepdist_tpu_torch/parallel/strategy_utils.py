@@ -28,8 +28,12 @@ Where aten differs from a jaxpr:
 - ``x @ w`` on a 3-D ``x`` is ``view`` + ``mm`` + ``view``, so a reshape
   maps the majormost dim of each merged or split group of dims (the batch
   dim of ``[B, T, D] -> [B*T, D]``), not only dims that survive whole.
-- The flash-attention ops have no rule yet, as the reference has none for
-  ``pallas_call``: only replicated values flow through them.
+- The flash-attention ops (``tepdist::flash_fwd``, ``flash_dq``,
+  ``flash_dkv``) map dim 0 (batch x head) of every tensor operand and
+  output through and keep the other dims whole. ``n_head`` on the node
+  says where the batch ends, so a split of dim 0 must fall at multiples of
+  it: a split of the batch. The reference has no rule for its
+  ``pallas_call``, so there a split stops at the kernel.
 """
 
 from __future__ import annotations
@@ -67,7 +71,7 @@ COPIES = {"clone", "_to_copy", "lift_fresh_copy", "alias", "detach",
 RESHAPES = {"view", "_unsafe_view", "reshape", "squeeze", "unsqueeze"}
 
 REDUCE_PARTIAL = {"sum", "mean", "prod"}  # split reduced dim -> partial
-REDUCE_NONLINEAR = {"amax", "amin", "argmax", "argmin", "logsumexp"}
+REDUCE_NONLINEAR = {"amax", "amin", "argmax", "argmin", "logsumexp", "var"}
 
 # Ops that produce fresh values with no operand coupling: any split of the
 # output is legal (each shard generates its slice). The ``*_like`` and
@@ -80,6 +84,10 @@ GENERATIVE = {"full", "zeros", "ones", "empty", "arange", "scalar_tensor",
               "new_zeros", "new_ones", "new_full", "new_empty"}
 
 OPAQUE = {"sort", "topk", "cumsum", "cumprod", "cummax", "cummin"}
+
+# The flash-attention ops: [B*H, T, ...] operands and outputs, dim 0
+# mapped through (``n_head``, their last argument, is H).
+FLASH = {"flash_fwd", "flash_dq", "flash_dkv"}
 
 # Ops that apply along one dim and map the others through.
 ROWWISE = {"_softmax", "_log_softmax"}
@@ -244,7 +252,26 @@ def dim_maps(node: GraphNode) -> Optional[List[Dict[int, int]]]:
     if name in ("tril", "triu"):
         return [{i: i for i in range(len(out_shape) - 2)}]
 
+    if name in FLASH:
+        return [{0: 0} for _ in shapes]
+
+    if name == "constant_pad_nd":
+        # ``pad`` lists (before, after) pairs from the last dim backwards
+        # (the explicit padding of a SAME convolution, which a jaxpr keeps
+        # inside the conv); the dims it leaves alone map through.
+        nd = len(shapes[0])
+        pad = list(node.args[1])
+        padded = {nd - 1 - i // 2 for i in range(len(pad)) if pad[i]}
+        return [_identity_except(nd, padded)]
+
     return None
+
+
+def flash_splits(node: GraphNode, num_splits: int) -> bool:
+    """Whether a flash op's dim 0 splits ``num_splits`` ways at whole
+    batch rows (multiples of its ``n_head``)."""
+    rows = _out_shape(node)[0]
+    return rows % (num_splits * int(node.args[-1])) == 0
 
 
 def _reshape_map(src: Tuple[int, ...], dst: Tuple[int, ...]) -> Dict[int, int]:
@@ -378,6 +405,8 @@ class StrategyUtil:
 
         maps = dim_maps(node)
         if maps is None:
+            return None
+        if name in FLASH and not flash_splits(node, num_splits):
             return None
         # Determine the output dim implied by each known split operand.
         out_dim = None
@@ -687,6 +716,8 @@ class StrategyUtil:
         maps = dim_maps(node)
         if maps is None:
             return None
+        if name in FLASH and not flash_splits(node, num_splits):
+            return None
         in_strategies: List[Optional[DimStrategy]] = []
         ok = False
         for i, a in enumerate(node.invars):
@@ -706,6 +737,11 @@ class StrategyUtil:
         # broadcast-created (or size-1 stretched) dim — every shard computes
         # its slice locally from the replicated operand, no comm needed.
         if not ok and name == "expand":
+            return InferResult(in_strategies, [out_strategy] * n_out)
+        # slice_backward (the reference's ``pad``): an output split on the
+        # padded dim is made locally from a replicated gradient, each shard
+        # writing the part of the slice that falls in its range.
+        if not ok and name == "slice_backward":
             return InferResult(in_strategies, [out_strategy] * n_out)
         if not ok:
             return None

@@ -11,8 +11,11 @@ activation-memory estimate. It runs on the port's captured aten graph
 The decomposition ENTRY -> {GAInit, CG, GA, AG} becomes one Python step
 (``build_ga_step``): GAInit = zero accumulators shaped like the params,
 CG = the per-micro-batch ``grad_fn``, GA = an add into the accumulator,
-AG = the optimizer apply after the loop. Ported: the fidelity path and the
-FP16_COMM bf16 compress path. Not ported: ZeRO and the int8 comm dtype.
+AG = the optimizer apply after the loop. Ported: the fidelity path, the
+FP16_COMM bf16 compress path and the int8 comm dtype (stochastic-rounding
+fake quantization, ``parallel/quantize.py``). The shard_map ZeRO path
+(``zero_dp``) comes with the pipeline runtime (ROADMAP item 13); on the
+SPMD path ZeRO is placements only (``auto_parallel.apply_zero_sharding``).
 """
 
 from __future__ import annotations
@@ -212,25 +215,40 @@ def build_ga_step(
       num_micro_batches: micro-batches per step (a time axis).
       batch_argnums: positions (in the step signature after params and
         opt_state, params counting as 0) of batch args split along dim 0.
-      comm_dtype: "" or "float32" (fidelity) or "bfloat16" (round the
-        per-micro gradient contributions to bf16, as FP16_COMM does).
+      comm_dtype: "" or "float32" (fidelity), "bfloat16" (round the
+        per-micro gradient contributions to bf16, as FP16_COMM does) or
+        "int8" (quantize->dequantize each contribution through int8 chunk
+        scales with stochastic rounding, drawn from one generator seeded
+        0x7e9d on the params' device).
 
     Returns ``step(params, opt_state, *batch) -> (mean_loss, params,
     opt_state)``. As in the JAX package, the accumulator has the
     parameters' dtype, the loss sum is fp32, and both are scaled by
     1/num_micro_batches.
     """
-    if comm_dtype not in ("", "float32", "bfloat16"):
-        raise ValueError(f"comm_dtype {comm_dtype!r} is not ported; "
-                         "expected '', 'float32' or 'bfloat16'")
-    compress = ServiceEnv.get().fp16_comm or comm_dtype == "bfloat16"
+    if comm_dtype not in ("", "float32", "bfloat16", "int8"):
+        raise ValueError(f"comm_dtype {comm_dtype!r}: expected '', "
+                         "'float32', 'bfloat16' or 'int8'")
+    int8 = comm_dtype == "int8"
+    compress = not int8 and (ServiceEnv.get().fp16_comm
+                             or comm_dtype == "bfloat16")
+    gens = {}
+
+    def maybe_compress(grads):
+        if int8:
+            from tepdist_tpu_torch.parallel.quantize import fake_quant_grads
+            dev = tree_leaves(grads)[0].device
+            if dev not in gens:
+                gens[dev] = torch.Generator(dev).manual_seed(0x7e9d)
+            return fake_quant_grads(grads, gens[dev])
+        return _compress(grads) if compress else grads
 
     if num_micro_batches <= 1:
         def step1(params, opt_state, *batch):
             loss, grads = grad_fn(params, *batch)
-            if compress:
+            if compress or int8:
                 grads = tree_map(lambda g, p: g.to(p.dtype),
-                                 _compress(grads), params)
+                                 maybe_compress(grads), params)
             params, opt_state = apply_fn(params, opt_state, grads)
             return loss, params, opt_state
         return step1
@@ -253,8 +271,7 @@ def build_ga_step(
                                device=tree_leaves(params)[0].device)
         for mb in micro:  # CG + GA
             loss, grads = grad_fn(params, *mb)
-            if compress:
-                grads = _compress(grads)
+            grads = maybe_compress(grads)
             for a, g in zip(tree_leaves(acc), tree_leaves(grads)):
                 a.add_(g.to(a.dtype))
             loss_sum = loss_sum + loss

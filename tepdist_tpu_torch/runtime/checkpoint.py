@@ -175,8 +175,11 @@ class CheckpointUtil:
     def _fetch(value):
         """Device -> host copy of ONE variable (the streaming unit; tests
         hook this to assert bounded host residency). A copy even on the
-        CPU: the training plan updates its tensors in place."""
+        CPU: the training plan updates its tensors in place. A DTensor is
+        gathered whole first (a collective: every rank saves together)."""
         if isinstance(value, torch.Tensor):
+            if hasattr(value, "full_tensor"):
+                value = value.full_tensor()
             return value.detach().to("cpu", copy=True)
         return np.array(value)
 
@@ -494,10 +497,47 @@ def save_sharded(directory: str, step: int, tree, max_to_keep: int = 5,
 
 
 def restore_sharded(directory: str, treedef, step: int = -1,
-                    worker_id: int = 0, device="cuda"):
+                    worker_id: int = 0, device="cuda", mesh=None,
+                    placements=None):
     """Restore a ``save_sharded`` tree onto ``device`` (shard entries
-    assembled to full tensors)."""
-    dev = resolve_device(device)
-    data, step = CheckpointUtil(directory).restore(step, worker_id)
-    leaves = [data[str(i)].to(dev) for i in range(len(data))]
+    assembled to full tensors).
+
+    With a device ``mesh`` and target ``placements`` (one DTensor
+    placement list per flat leaf), each leaf lands as a DTensor in the
+    TARGET layout: a leaf saved as shards is redistributed straight into
+    this rank's extent (``restore_resharded``, arXiv:2112.01075) — the
+    destination mesh need not match the one that saved it, and the full
+    tensor is never built on the host; a leaf saved whole is read and
+    distributed. The JAX package's version takes target shardings."""
+    util = CheckpointUtil(directory)
+    if placements is None:
+        dev = resolve_device(device)
+        data, step = util.restore(step, worker_id)
+        leaves = [data[str(i)].to(dev) for i in range(len(data))]
+        return tree_unflatten(treedef, leaves), step
+
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    idx, step = util.shard_index(step)
+    whole = None
+    leaves = []
+    for i, spec in enumerate(placements):
+        name, spec = str(i), list(spec)
+        if name in idx:
+            gshape = tuple(idx[name]["global_shape"])
+            local, offset = compute_local_shape_and_global_offset(
+                gshape, mesh, spec)
+            dst = tuple((o, o + n) for o, n in zip(offset, local))
+            shard = util.restore_resharded({name: [dst]}, step)[0][name][0]
+            leaves.append(DTensor.from_local(
+                shard.to(mesh.device_type), mesh, spec, run_check=False,
+                shape=torch.Size(gshape),
+                stride=torch.empty(gshape, device="meta").stride()))
+        else:
+            if whole is None:
+                whole, _ = util.restore(step, worker_id)
+            leaves.append(distribute_tensor(
+                whole[name].to(mesh.device_type), mesh, spec))
     return tree_unflatten(treedef, leaves), step

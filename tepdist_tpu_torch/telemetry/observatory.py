@@ -89,28 +89,15 @@ class PruneRecord:
                 "suspect_bug": self.suspect_bug}
 
 
-_COMM_DTYPE_SHORT = {"bfloat16": "bf16", "int8": "int8"}
-
-
-def comm_dtype_suffix(comm_dtype: str) -> str:
-    """A candidate's comm-dtype modifier as the ``@bf16``/``@int8`` config
-    suffix: the JAX package's ``parallel/exploration.py`` rendering, copied
-    here until the port has the planner."""
-    if not comm_dtype or comm_dtype == "float32":
-        return ""
-    return "@" + _COMM_DTYPE_SHORT.get(comm_dtype, comm_dtype)
-
-
-def zero_suffix(zero: bool) -> str:
-    """A candidate's ZeRO modifier as the ``@zero`` config suffix (the
-    planner's rendering, as :func:`comm_dtype_suffix`)."""
-    return "@zero" if zero else ""
-
-
 def candidate_config(c: Dict[str, Any]) -> str:
     """Stable config string for a candidate dict — the alignment key
     plan_diff joins two reports on (same rendering as
     ``exploration.candidate_summary``)."""
+    from tepdist_tpu_torch.parallel.exploration import (
+        comm_dtype_suffix,
+        zero_suffix,
+    )
+
     suffix = (comm_dtype_suffix(c.get("comm_dtype", ""))
               + zero_suffix(c.get("zero", False)))
     if c["kind"] == "spmd":

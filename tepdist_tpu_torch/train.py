@@ -1,5 +1,5 @@
-"""Training entry point: the port of ``tepdist_tpu/train.py::plan_training``
-for one device.
+"""Training entry point: the port of ``tepdist_tpu/train.py``
+(``plan_training``, ``explore_parallelism``).
 
     plan = plan_training(loss_fn, adamw_bf16(1e-4), params, tokens,
                          num_micro_batches=2)
@@ -18,13 +18,25 @@ instead): the tensors passed as ``params`` are the plan's state when they
 already lie on the device. ``save`` and ``restore`` write and read the JAX
 package's checkpoint format by flat leaf index of ``(params, opt_state)``,
 so a plan of either package resumes from the other's checkpoint.
+
+With a ``topology`` (or ``explore=True``, which picks one from the SPMD
+candidates of ``parallel/exploration``), the plan is the reference's SPMD
+plan: the whole GA step, optimizer apply included, is captured on fake
+tensors and planned over the mesh by ``auto_parallel`` (cost ILP or rule
+mode, memory save, ZeRO, affinity), then lowered to DTensor placements and
+run by an fx interpreter on DTensors over the topology's
+``torch.distributed`` device mesh (``_SpmdTrainingPlan``). The caller
+starts the process group, one rank per device of the mesh. Without either,
+the plan stays the eager one-device plan above, where the reference
+sends one device through ``auto_parallel`` too (a deliberate break:
+ROADMAP).
 """
 
 from __future__ import annotations
 
 import logging
 import time
-from typing import Callable, Optional
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -32,7 +44,8 @@ from tepdist_tpu_torch.core import remat
 from tepdist_tpu_torch.core.device import resolve_device
 from tepdist_tpu_torch.core.mesh import MeshTopology
 from tepdist_tpu_torch.core.service_env import ServiceEnv
-from tepdist_tpu_torch.core.tree import tree_leaves, tree_map, tree_unflatten
+from tepdist_tpu_torch.core.tree import (tree_leaves, tree_map,
+                                         tree_structure, tree_unflatten)
 from tepdist_tpu_torch.graph.fx_graph import trace_graph
 from tepdist_tpu_torch.parallel.sync_free import (SyncFreeResult,
                                                   analyze_sync_free,
@@ -118,6 +131,87 @@ class TrainingPlan:
             dst.copy_(src)
 
 
+class _SpmdTrainingPlan(TrainingPlan):
+    """The SPMD plan (the reference's ``_SpmdTrainingPlan``): the state is
+    a list of DTensors in the plan's input placements, and each step runs
+    the lowered GA step on it and rebinds it to the step's state outputs
+    (``state_alias = {1 + k: k}``)."""
+
+    def __init__(self, plan, params, opt_state, device: torch.device,
+                 sync_free: Optional[SyncFreeResult] = None):
+        super().__init__(None, None, None, device, plan.topology, sync_free)
+        self.parallel_plan = plan
+        self._exe = plan.executable(device.type)
+        self._state_tree = tree_structure((params, opt_state))
+        flat_state = tree_leaves((params, opt_state))
+        self._n_state = len(flat_state)
+        self._state = [self._exe.distribute_input(i, v)
+                       for i, v in enumerate(flat_state)]
+        self._donate = bool(plan.state_donation())
+
+    def _inputs(self, batch) -> list:
+        return list(self._state) + [b.to(self.device)
+                                    for b in tree_leaves(batch)]
+
+    def step(self, *batch) -> float:
+        env = ServiceEnv.get()
+        t0 = time.perf_counter()
+        inputs = self._inputs(batch)
+        if self._donate:
+            # The input list holds the only reference to the old state,
+            # so each leaf is freed after its last use in the step.
+            self._state = None
+        outs = self._exe.run(inputs)
+        self._state = list(outs[1:1 + self._n_state])
+        loss = float(outs[0].full_tensor())  # waits for the step
+        if env.debug:
+            log.info("[ExecutePlan Duration] %.3f ms",
+                     (time.perf_counter() - t0) * 1e3)
+        return loss
+
+    def save(self, directory: str, step: int, max_to_keep: int = 5,
+             block: bool = True):
+        """Checkpoint the state whole: every rank gathers each DTensor
+        leaf (a collective), rank 0 alone writes it."""
+        import torch.distributed as dist
+
+        if dist.get_rank() == 0:
+            return super().save(directory, step, max_to_keep, block)
+        for leaf in self._state:
+            leaf.full_tensor()
+        return None
+
+    def involuntary_remats(self, *batch):
+        """One diagnostic step on the current state and ``batch`` (nothing
+        is updated): the graph nodes at which DTensor all-gathered an
+        operand the plan keeps split (``parallel/lowering_check``)."""
+        return self.parallel_plan.lowering_diagnostics(
+            self._inputs(batch), device_type=self.device.type)
+
+    def variables(self):
+        """(params, opt_state) as whole tensors on the device."""
+        return tree_unflatten(self._state_tree,
+                              [v.full_tensor() for v in self._state])
+
+    def _device_state(self):
+        # The DTensors themselves: the checkpoint writer gathers one at a
+        # time.
+        return list(self._state)
+
+    def _load(self, leaves) -> None:
+        if len(leaves) != self._n_state:
+            raise ValueError(f"checkpoint holds {len(leaves)} leaves, the "
+                             f"plan's state {self._n_state}")
+        state = []
+        for i, (src, dst) in enumerate(zip(leaves, self._state)):
+            if tuple(src.shape) != tuple(dst.shape) or src.dtype != dst.dtype:
+                raise ValueError(
+                    f"checkpoint leaf {tuple(src.shape)} {src.dtype} does "
+                    f"not fit the plan's {tuple(dst.shape)} {dst.dtype}")
+            state.append(self._exe.distribute_input(i, src.to(self.device)))
+        self._state = state
+
+
 _REMAT_POLICIES = {**remat.POLICIES, "true": None, "1": None}
 
 
@@ -147,6 +241,28 @@ def value_and_grad(loss_fn: Callable) -> Callable:
     return grad_fn
 
 
+def explore_parallelism(
+    loss_fn: Callable,
+    params,
+    *example_batch,
+    n_devices: int,
+    num_micro_batches: int = 4,
+    entry_point: str = "explore_parallelism",
+) -> Dict[str, Any]:
+    """Exploration over the SPMD candidate space — every mesh
+    factorization of ``n_devices`` with its ``@bf16``, ``@int8`` and
+    ``@zero`` modifiers, priced by the Evaluator on the loss's captured
+    value-and-grad graph (parallel/exploration.py; reference:
+    RunExplorationlMode, auto_parallel.cc:236). Needs no device. The
+    pipeline and sequence-parallel kinds come with ROADMAP items 13 and
+    14 and are recorded as ``excluded_kinds``."""
+    from tepdist_tpu_torch.parallel.exploration import explore
+
+    return explore(loss_fn, params, *example_batch, n_devices=n_devices,
+                   num_micro_batches=num_micro_batches,
+                   entry_point=entry_point)
+
+
 def plan_training(
     loss_fn: Callable,
     optimizer,
@@ -154,8 +270,14 @@ def plan_training(
     *example_batch,
     num_micro_batches: Optional[int] = None,
     device="cuda",
+    topology: Optional[MeshTopology] = None,
+    explore: bool = False,
+    mode: Optional[str] = None,
+    annotations: Optional[Dict[int, Dict[str, Any]]] = None,
+    var_mem_limit: Optional[int] = None,
+    devices: Optional[Sequence] = None,
 ) -> TrainingPlan:
-    """Plan a training loop for ``loss_fn(params, *batch)`` on one device.
+    """Plan a training loop for ``loss_fn(params, *batch)``.
 
     ``optimizer`` has ``init(params)`` and ``apply(params, grads, state)``
     (``optim.adamw_bf16``). ``params`` is a tree of tensors; it is moved to
@@ -164,9 +286,54 @@ def plan_training(
     micro count (argument or NUM_MICRO_BATCHES), the step is captured on
     fake tensors made from ``params`` and the example batch, and the
     sync-free analysis sizes it from the peak-activation estimate against
-    the chip's HBM (``parallel/performance_utils.chip_spec``)."""
+    the chip's HBM (``parallel/performance_utils.chip_spec``).
+
+    SPMD plans: ``topology`` is the mesh to plan over (the process group
+    must span its devices, this rank's on ``device``); ``explore=True``
+    picks the topology, comm dtype and ZeRO from the SPMD candidates for
+    ``len(devices)`` devices (default: the process group's size). ``mode``
+    is "cost" (default) or "rule" (OPT_LEVEL=0 or RULE_MODE);
+    ``annotations`` pins strategies as ``{flat invar index: {axis:
+    DimStrategy}}`` over the captured step's inputs (params, then the
+    optimizer state, then the batch); ``var_mem_limit`` (or VAR_MEM_LIMIT)
+    caps per-device variable bytes."""
     dev = resolve_device(device)
     env = ServiceEnv.get()
+    if mode is None and env.opt_level == 0:
+        mode = "rule"
+    explored_winner = None
+    comm_dtype = ""
+    zero = False
+    if explore and topology is None:
+        if devices is not None:
+            n_devices = len(devices)
+        else:
+            import torch.distributed as dist
+            n_devices = dist.get_world_size() if dist.is_initialized() else 1
+        best = explore_parallelism(
+            loss_fn, params, *example_batch, n_devices=n_devices,
+            num_micro_batches=num_micro_batches or 4,
+            entry_point="plan_training")
+        explored_winner = best
+        import torch.distributed as dist
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            # Every rank runs rank 0's winner (the search has time limits).
+            box = [(best["topology"].device_axes(),
+                    best.get("comm_dtype", ""), best.get("zero", False))]
+            dist.broadcast_object_list(box, src=0)
+            axes, best["comm_dtype"], best["zero"] = box[0]
+            best["topology"] = MeshTopology(axes)
+        topology = best["topology"]
+        # The winner's modifiers: compressed gradient contributions, and
+        # the optimizer state split over the data axis (ZeRO).
+        comm_dtype = best.get("comm_dtype", "")
+        zero = best.get("zero", False)
+        if comm_dtype:
+            log.info("exploration winner compresses gradient collectives "
+                     "to %s", comm_dtype)
+        if zero:
+            log.info("exploration winner shards optimizer state over the "
+                     "data axis (ZeRO)")
     if num_micro_batches is None and env.num_micro_batches > 0:
         num_micro_batches = env.num_micro_batches
     if num_micro_batches is None and not example_batch:
@@ -195,7 +362,12 @@ def plan_training(
 
     step_fn = build_ga_step(grad_fn, apply_fn, num_micro_batches,
                             batch_argnums=tuple(
-                                range(1, 1 + max(1, len(example_batch)))))
+                                range(1, 1 + max(1, len(example_batch)))),
+                            comm_dtype=comm_dtype)
+    if topology is not None:
+        return _plan_spmd(step_fn, params, opt_state, example_batch, dev,
+                          topology, res, mode, annotations, var_mem_limit,
+                          zero, explored_winner)
     axes = [("data", 1)]
     if num_micro_batches > 1:
         topology = MeshTopology([("micro", num_micro_batches)] + axes,
@@ -203,3 +375,48 @@ def plan_training(
     else:
         topology = MeshTopology(axes)
     return TrainingPlan(step_fn, params, opt_state, dev, topology, res)
+
+
+def _plan_spmd(step_fn, params, opt_state, example_batch, dev, topology,
+               res, mode, annotations, var_mem_limit, zero,
+               explored_winner) -> TrainingPlan:
+    """The SPMD path of ``plan_training``: ``auto_parallel`` of the whole
+    GA step over ``topology``, lowered to DTensor (the reference's SPMD
+    path, ``tepdist_tpu/train.py:367-412``)."""
+    from tepdist_tpu_torch.parallel.auto_parallel import auto_parallel
+
+    env = ServiceEnv.get()
+    n_param = len(tree_leaves(params))
+    n_state = len(tree_leaves((params, opt_state)))
+    state_alias = {1 + k: k for k in range(n_state)}
+    # ZeRO winners: the optimizer-state leaves are flat invars
+    # n_param..n_state-1 of step_fn(params, opt_state, *batch); the
+    # planner force-splits them over the data axis so DTensor runs the
+    # reduce-scatter / sharded-apply / all-gather update.
+    zero_invars = list(range(n_param, n_state)) if zero else None
+    example_batch = tree_map(lambda b: b.to(dev), example_batch)
+    plan = auto_parallel(
+        step_fn, topology, params, opt_state, *example_batch,
+        annotations=annotations, mode=mode, state_alias=state_alias,
+        var_mem_limit=var_mem_limit, zero_invars=zero_invars)
+    tplan = _SpmdTrainingPlan(plan, params, opt_state, dev, res)
+    if explored_winner is not None and env.lowering_postcheck:
+        from tepdist_tpu_torch.telemetry import metrics, observatory
+        try:
+            remats = tplan.involuntary_remats(*example_batch)
+        except Exception as e:  # noqa: BLE001 — diagnostics only
+            log.warning("lowering post-check failed: %r", e)
+        else:
+            tplan.lowering_remats = remats
+            observatory.fold_remats(explored_winner.get("report"), remats)
+            if remats:
+                metrics().counter("involuntary_remat").inc(len(remats))
+                log.warning(
+                    "explore winner (axes=%s): %d op(s) all-gathered a "
+                    "split operand (%s) — the chosen sharding forces "
+                    "resharding the cost model did not price; consider a "
+                    "different topology", list(topology.device_axes()),
+                    len(remats), ", ".join(remats[:3]))
+    if explored_winner is not None and "report" in explored_winner:
+        tplan.exploration_report = explored_winner["report"]
+    return tplan

@@ -83,9 +83,20 @@ sys.exit(1 if bad else 0)
     "tepdist_tpu_torch.core.par_type", "tepdist_tpu_torch.core.dist_spec",
     "tepdist_tpu_torch.core.mesh", "tepdist_tpu_torch.parallel.strategy_utils",
     "tepdist_tpu_torch.parallel.liveness",
-    "tepdist_tpu_torch.parallel.performance_utils"])
+    "tepdist_tpu_torch.parallel.performance_utils",
+    "tepdist_tpu_torch.parallel.resolve_utils",
+    "tepdist_tpu_torch.parallel.cost_spmd_strategy",
+    "tepdist_tpu_torch.parallel.fast_spmd_strategy",
+    "tepdist_tpu_torch.parallel.inst_affinity",
+    "tepdist_tpu_torch.parallel.spmd_transform",
+    "tepdist_tpu_torch.parallel.auto_parallel",
+    "tepdist_tpu_torch.parallel.evaluator",
+    "tepdist_tpu_torch.parallel.exploration",
+    "tepdist_tpu_torch.parallel.quantize",
+    "tepdist_tpu_torch.parallel.lowering_check",
+    "tepdist_tpu_torch.runtime.initializers"])
 def test_planner_module_imports_no_jax(module):
-    """Each module of the planner's first part imported alone in a fresh
+    """Each module of the planner (both parts) imported alone in a fresh
     interpreter."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _MODULE_PROBE, module],

@@ -142,8 +142,21 @@ def test_mesh_topology_matches(axes, shared, layout):
                 == j.split_id_for_device(dev).ids)
     for name, _ in j.device_axes():
         assert t.dev_groups(name) == j.dev_groups(name)
-    with pytest.raises(NotImplementedError):
-        t.to_jax_mesh()
+    # The device mesh: the ranks laid out as the reference lays out its
+    # devices, over the device axes by name, on a fake process group.
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    jgrid = j.to_jax_mesh(jax.devices()[:j.num_devices]).devices
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=t.num_devices)
+    try:
+        dm = t.to_device_mesh("cpu")
+        assert dm.mesh.tolist() == t.rank_grid() == np.vectorize(
+            lambda d: d.id)(jgrid).tolist()
+        assert dm.mesh_dim_names == tuple(n for n, _ in t.device_axes())
+    finally:
+        dist.destroy_process_group()
 
 
 # --------------------------------------------------------------------------
@@ -314,7 +327,9 @@ def test_broadcasting_add_replicates_the_size1_operand():
 
 
 def test_flash_ops_have_no_rule_yet():
-    """As the reference's pallas_call: a split stops at the flash op, and
+    """The flash rule (the reference has none for its pallas_call, where a
+    split stops): dim 0 (batch x head) maps through when it splits at
+    whole batch rows (multiples of n_head), no other dim splits, and
     replicated values pass."""
     cfg = dataclasses.replace(tgpt2.CONFIGS["test"], attn="flash")
     params = tgpt2.init_params(cfg, device="cpu")
@@ -322,8 +337,20 @@ def test_flash_ops_have_no_rule_yet():
     graph, _, _ = trace_graph(
         value_and_grad(lambda p, t: tgpt2.loss_fn(p, t, cfg)), params, toks)
     node = next(n for n in graph.nodes if n.prim == "flash_fwd")
+    s0 = tds.DimStrategy.split_on(0, 2)
+    r = tsu.StrategyUtil.forward_infer(node, {0: s0}, 2)
+    assert [_key(s) for s in r.in_strategies] == [_key(s0)] * 3
+    assert [_key(s) for s in r.out_strategies] == [_key(s0)] * 2
+    # Batch 2 x 4 heads: 2 ways split batch rows, 4 ways would split the
+    # heads of a row.
     assert tsu.StrategyUtil.forward_infer(
-        node, {0: tds.DimStrategy.split_on(0, 2)}, 2) is None
+        node, {0: tds.DimStrategy.split_on(0, 4)}, 4) is None
+    assert tsu.StrategyUtil.forward_infer(
+        node, {0: tds.DimStrategy.split_on(1, 2)}, 2) is None
+    for prim in ("flash_dq", "flash_dkv"):
+        bwd = next(n for n in graph.nodes if n.prim == prim)
+        b = tsu.StrategyUtil.back_infer(bwd, s0, 2)
+        assert [_key(s) for s in b.in_strategies] == [_key(s0)] * 6
     r = tsu.StrategyUtil.forward_infer(
         node, {0: tds.DimStrategy.make_replicated(2)}, 2)
     assert all(s.replicated for s in r.out_strategies)
