@@ -10,7 +10,8 @@ calls (``plan_training`` + ``plan.step``, ``plan.save``/``restore``,
 ``sampling.sample``), in phases that each print JSON lines:
 
 1. device: the card, and its name and power limit from nvidia-smi;
-2. build: compile the three flash-attention kernels from ``csrc/``;
+2. build: compile the three flash-attention kernels from ``csrc/``, and
+   the host-side telemetry rings and task-scheduler core;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the GPT-2 path's shape [4*25, 1024, 64], at the Llama path's
    [4*16, 512, 128], at the remat phase's [8*25, 1024, 64] and at ragged
@@ -50,6 +51,19 @@ calls (``plan_training`` + ``plan.step``, ``plan.save``/``restore``,
    steps with losses within SPMD_STEP_LOSS_RTOL of the eager plan's, the
    sixth below the first, every kernel launched; step seconds, peak
    memory and the involuntary-remat count;
+5e. pipeline: the same model, recipe, seed and batches through the task-
+   graph pipeline, ``plan_training(num_stages=4, num_micro_batches=8,
+   devices=[cuda:0] * 4)``: the forward loss captured at micro-batch
+   shapes (seconds), the stage ILP (seconds, status), nodes and flop share
+   per stage, cross-stage bytes, tasks by type, ``plan_verify`` (no
+   finding), the native scheduler (loaded, equal to the Python
+   simulation), the schedule's policy, window and predicted makespan and
+   bubble for four devices (the four stages share the one card), then 6
+   steps: losses within PIPELINE_LOSS_RTOL of the plan phase's, the sixth
+   below the first, launches 2LM / LM / LM a step (768 / 384 / 384), step
+   seconds, peak memory, the seconds in each kind of task body of a
+   traced seventh step and a profiled eighth; then each kernel against its
+   plain version at the pipeline's micro batch [6*25, 1024, 64];
 6. llama: Llama 1B at full width and depth (bench.py's recipe: batch 4,
    seq 512, ``adamw(1e-4)``) for 6 steps on the bytes of the repository's
    text files, packed with ``data/tokens.py`` and fed through the
@@ -225,10 +239,12 @@ def phase_device():
 
 def phase_build():
     """The three CUDA kernels with nvcc, one process each, and beside them
-    the telemetry core's native rings (``telemetry/_fastobs.c``) with the
-    host compiler; a failed build of either fails the run."""
+    the telemetry core's native rings (``telemetry/_fastobs.c``) and the
+    task scheduler's core (``native/scheduler.cc``) with the host
+    compilers; a failed build of any fails the run."""
     import threading
 
+    from tepdist_tpu_torch import native
     from tepdist_tpu_torch.ops import _build
     from tepdist_tpu_torch.telemetry import _fastobs
 
@@ -238,6 +254,9 @@ def phase_build():
         t = time.perf_counter()
         fastobs["loaded"] = _fastobs.load() is not None
         fastobs["seconds"] = time.perf_counter() - t
+        t = time.perf_counter()
+        fastobs["sched_loaded"] = native.native_available()
+        fastobs["sched_seconds"] = time.perf_counter() - t
 
     t0 = time.perf_counter()
     host = threading.Thread(target=build_fastobs)
@@ -247,7 +266,11 @@ def phase_build():
     if not fastobs["loaded"]:
         raise SystemExit("chip_smoke: telemetry/_fastobs.c did not build "
                          "or load (the warning above says why)")
+    if not fastobs["sched_loaded"]:
+        raise SystemExit("chip_smoke: native/scheduler.cc did not build or "
+                         "load (the warning above says why)")
     seconds["_fastobs"] = fastobs["seconds"]
+    seconds["_scheduler"] = fastobs["sched_seconds"]
     ptxas = {}
     for name in KERNELS:
         log = _build.library_path(name).with_suffix(".so.log")
@@ -924,6 +947,184 @@ def phase_spmd_step(micro_batches: int, eager_losses):
     finally:
         dist.destroy_process_group()
         torch.cuda.empty_cache()
+
+
+# pipeline phase: the plan phase's model, recipe, seed and batches in 4
+# stages of 8 micro batches (micro batch 6 x 1024), width and depth uncut,
+# all four stages on the one card (device list [cuda:0] * 4). The losses
+# against the plan phase's: step 1 is the mean of the same per-token fp32
+# losses summed in another order (8 micro means against one), about 1e-6
+# relative; later steps differ through the gradients, which the pipeline
+# sums over 8 micro batches in bf16 accumulators (each add rounds at 2**-9
+# relative) where the plan phase's M = 1 rounds once, so Adam's update
+# moves by at most that fraction of lr. The CPU at 64-128 width and 4-8
+# layers shows 2e-7 to 4.3e-6 over six steps; the spmd_step bound of 2e-3
+# (two bf16 rounding points per op over six steps at this width) holds it.
+PIPE_STAGES, PIPE_MICRO = 4, 8
+PIPELINE_LOSS_RTOL = 2e-3
+
+
+def _chosen_window(exe) -> int:
+    """The 1F1B window the scheduler picked: the candidate whose simulation
+    gives the chosen order (simulated on a copy, so the executor's GC plan
+    stays the chosen order's)."""
+    import copy
+
+    from tepdist_tpu_torch.runtime.task_scheduler import TaskScheduler
+
+    sched = exe.schedule
+    ts = TaskScheduler(copy.deepcopy(exe.dag), device_type=exe.device_type)
+    for w in range(1, 4 * PIPE_MICRO + 1):
+        if ts._simulate(w, policy=sched.policy).order == sched.order:
+            return w
+    return -1
+
+
+def phase_pipeline(eager_losses, eager_micro: int):
+    """GPT-2 1.5B at full width and depth through the task-graph pipeline:
+    ``plan_training(num_stages=4, num_micro_batches=8, devices=[cuda:0] *
+    4)`` captures the forward loss at micro-batch shapes on fake tensors,
+    cuts it with the stage ILP, builds and verifies the task DAG, schedules
+    it (1F1B, the native core) and trains 6 steps on the plan phase's
+    batches. The four stages share the card, so they run one after
+    another; the scheduler's makespan is predicted for four devices.
+    Returns the kernels' launches over the six steps."""
+    import copy
+
+    import torch
+
+    from tepdist_tpu_torch import native, train
+    from tepdist_tpu_torch.analysis.plan_verify import (PlanVerificationError,
+                                                        verify_plan)
+    from tepdist_tpu_torch.core.service_env import ServiceEnv
+    from tepdist_tpu_torch.models import gpt2
+    from tepdist_tpu_torch.ops import flash_attention as fa
+    from tepdist_tpu_torch.optim import adamw_bf16
+    from tepdist_tpu_torch.parallel.performance_utils import chip_spec
+    from tepdist_tpu_torch.runtime.task_scheduler import TaskScheduler
+    from tepdist_tpu_torch.telemetry import configure, tracer
+
+    torch.cuda.empty_cache()
+    if not native.native_available():
+        raise SystemExit("chip_smoke: the native scheduler did not build or "
+                         "load on the card's host")
+    cfg = _config(48)
+    L, S, M = cfg.n_layer, PIPE_STAGES, PIPE_MICRO
+    # The unrolled layout of the plan phase's weights: stacked_init_params
+    # stacks these same draws (seed 0).
+    params = gpt2.init_params(cfg, seed=0, device="cuda")
+    tokens = gpt2.fake_batch(cfg, PLAN_BATCH, SEQ, seed=0, device="cuda")
+    ServiceEnv.reset({"TEPDIST_VERIFY_PLAN": "1"})
+    try:
+        t0 = time.perf_counter()
+        plan = train.plan_training(
+            lambda p, t: gpt2.loss_fn(p, t, cfg), adamw_bf16(1e-4), params,
+            tokens, num_stages=S, num_micro_batches=M,
+            devices=[torch.device("cuda", 0)] * S)
+        setup_s = time.perf_counter() - t0
+    finally:
+        ServiceEnv.reset()
+    del params
+    exe, prog = plan.executable, plan.pipeline
+    sched, dag = exe.schedule, exe.dag
+    findings = []
+    try:
+        verify_plan(dag, schedule=sched, prog=prog)
+    except PlanVerificationError as e:
+        findings.append(str(e))
+    gated = exe.verify_report is not None
+    probe = TaskScheduler(copy.deepcopy(dag), device_type=exe.device_type)
+    native_same = (probe._simulate(2, use_native=True).order
+                   == probe._simulate(2, use_native=False).order)
+    flops = prog.stage_flops()
+    tasks = {}
+    for n in dag.nodes:
+        tasks[n.task_type.value] = tasks.get(n.task_type.value, 0) + 1
+    want = {"flash_fwd": 2 * L * M, "flash_dq": L * M, "flash_dkv": L * M}
+
+    torch.cuda.reset_peak_memory_stats()
+    losses, seconds, per_step = [], [], []
+    fa.reset_launch_counts()
+    for _ in range(STEPS):
+        before = dict(fa.launch_counts)
+        t0 = time.perf_counter()
+        losses.append(plan.step(tokens))   # returns after a device sync
+        seconds.append(time.perf_counter() - t0)
+        per_step.append({n: fa.launch_counts[n] - before[n] for n in want})
+    launches = dict(fa.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    steady = seconds[1:]
+    median = sorted(steady)[len(steady) // 2]
+    # A diagnostic seventh step with the executor's spans on: host seconds
+    # in each kind of task body (they include any wait for the launch
+    # queue), per micro batch.
+    configure(enabled=True)
+    tracer().snapshot(clear=True)
+    t0 = time.perf_counter()
+    plan.step(tokens)
+    traced_s = time.perf_counter() - t0
+    records = tracer().snapshot(clear=True)
+    configure(enabled=False)
+    span_s = {}
+    for r in records:
+        if r.get("cat") != "step":
+            span_s[r["cat"]] = span_s.get(r["cat"], 0.0) + r["dur"] / 1e6
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, eager_losses)]
+    emit({"phase": "pipeline", "model": "GPT-2 1.5B", "n_layer": L,
+          "n_embd": cfg.n_embd, "batch": PLAN_BATCH, "seq": SEQ,
+          "cut": "none", "num_stages": S, "micro_batches": M,
+          "devices": "[cuda:0] * 4 (the four stages share the card)",
+          "setup_seconds": setup_s, "capture_seconds": prog.trace_seconds,
+          "graph_nodes": len(prog.graph),
+          "stage_ilp": {"status": prog.sketch.solver_status,
+                        "seconds": prog.sketch.solve_seconds,
+                        "message": prog.sketch.solver_message,
+                        "sketch_nodes": len(prog.sketch.nodes)},
+          "nodes_per_stage": [len(m.eqns) for m in prog.stages],
+          "flops_share": [f / sum(flops) for f in flops],
+          "flash_fwd_per_stage": [sum(1 for n in m.eqns
+                                      if n.prim == "flash_fwd")
+                                  for m in prog.stages],
+          "cross_stage_bytes": prog.decomp.cross_stage_bytes(),
+          "tasks": tasks, "plan_verify_findings": findings,
+          "plan_verify_gate_ran": gated,
+          "native_scheduler_loaded": native.native_available(),
+          "native_equals_python": native_same,
+          "schedule": {"policy": sched.policy,
+                       "window": _chosen_window(exe),
+                       "chip": chip_spec().name,
+                       "predicted_makespan_s": sched.makespan,
+                       "predicted_bubble_ratio": sched.bubble_ratio,
+                       "note": "predicted for 4 devices; on one card the "
+                               "stages run one after another"},
+          "losses": losses, "plan_losses": list(eager_losses),
+          "plan_micro_batches": eager_micro, "loss_rel_diff": rel,
+          "loss_rtol": PIPELINE_LOSS_RTOL, "step_seconds": seconds,
+          "tokens_per_s": PLAN_BATCH * SEQ * len(steady) / sum(steady),
+          "max_memory_allocated_bytes": peak,
+          "launches_per_step": per_step, "expected_per_step": want,
+          "traced_step_seconds": traced_s,
+          "task_span_seconds_per_micro_batch":
+              {k: v / M for k, v in span_s.items()}})
+    if findings or not gated:
+        raise SystemExit(f"chip_smoke: plan_verify findings {findings} "
+                         f"(gate ran: {gated})")
+    if not native_same:
+        raise SystemExit("chip_smoke: the native scheduler's order differs "
+                         "from the Python simulation's")
+    if not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"chip_smoke: non-finite loss {losses}")
+    if max(rel) > PIPELINE_LOSS_RTOL:
+        raise SystemExit(f"chip_smoke: pipeline losses {losses} differ from "
+                         f"the plan phase's {eager_losses}")
+    if not losses[-1] < losses[0]:
+        raise SystemExit(f"chip_smoke: loss did not fall {losses}")
+    if any(step != want for step in per_step):
+        raise SystemExit(f"chip_smoke: launches {per_step} != {want}")
+    _profile_step("GPT-2 1.5B pipeline", lambda: plan.step(tokens), median)
+    del plan, exe
+    torch.cuda.empty_cache()
+    return launches
 
 
 # Device-time groups of the profiled step, by kernel name (first match).
@@ -1828,6 +2029,12 @@ def main() -> int:
         seed=200, time_it=True)
     phase_spmd_plan()
     spmd_launches = phase_spmd_step(PLAN_BATCH // plan_mb, plan_losses)
+    pipe_launches = phase_pipeline(plan_losses, PLAN_BATCH // plan_mb)
+    # The pipeline path's kernels at its micro batch.
+    pipe_mb = PLAN_BATCH // PIPE_MICRO
+    pipe_case = _checked_case("pipeline_path", dict(
+        B=pipe_mb, H=25, T=SEQ, D=64, dtype=torch.bfloat16, causal=True),
+        seed=300, time_it=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         llama_launches, save = phase_llama(workdir)
@@ -1851,7 +2058,10 @@ def main() -> int:
              f"phase, batch {PLAN_BATCH})", plan_case, plan_launches),
             (f"[{plan_mb}*25, 1024, 64] bf16 causal (GPT-2 1.5B "
              f"spmd_step phase: the lowered step on DTensors)", plan_case,
-             spmd_launches)):
+             spmd_launches),
+            (f"[{pipe_mb}*25, 1024, 64] bf16 causal (GPT-2 1.5B pipeline "
+             f"phase: 4 stages, M = {PIPE_MICRO})", pipe_case,
+             pipe_launches)):
         for name, (source, replaces) in KERNELS.items():
             r = case[name]
             rows.append({"name": name, "shape": shape, "route": "cuda",

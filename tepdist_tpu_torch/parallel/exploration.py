@@ -12,7 +12,8 @@ or :func:`spmd_candidates` here, so they all search the SAME space: the
 SPMD mesh factorizations (data / model / data x model / 3-level), each
 with its ``@bf16``, ``@int8`` and ``@zero`` modifiers. The reference's
 other two kinds come with their runtimes: pipeline stage cuts
-(``pipeline_candidates``, ``PipelineWinner``) with ROADMAP item 13 and
+(``pipeline_candidates``, ``PipelineWinner``) with ROADMAP item 13b (their
+blocked candidates put several devices in a stage) and
 sequence-parallel meshes (``seq_candidates``) with item 14. Until then
 :func:`explore` records them as ``excluded_kinds`` in its result and its
 report, as the reference records a restricted search.
@@ -122,9 +123,9 @@ def explore(
     "candidates": [...]}``.
 
     ``include_pipeline`` and ``include_seq`` must stay False until the
-    pipeline runtime (ROADMAP item 13) and sequence parallelism (item 14)
-    are ported; the restriction is RECORDED in the result
-    (``excluded_kinds``) and its report, never silent.
+    multi-device pipeline stages (ROADMAP item 13b) and sequence
+    parallelism (item 14) are ported; the restriction is RECORDED in the
+    result (``excluded_kinds``) and its report, never silent.
 
     The whole search runs under an observatory capture: every enumerated
     proposal lands in the winner's ``best["report"]``
@@ -133,8 +134,8 @@ def explore(
     rationale."""
     if include_pipeline:
         raise NotImplementedError(
-            "pipeline candidates come with the pipeline runtime, ROADMAP "
-            "item 13")
+            "pipeline candidates need more than one device in a stage, "
+            "which the pipeline runtime does not run yet (ROADMAP item 13b)")
     if include_seq:
         raise NotImplementedError(
             "sequence-parallel candidates come with ring/Ulysses "

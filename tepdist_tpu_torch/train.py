@@ -30,6 +30,14 @@ starts the process group, one rank per device of the mesh. Without either,
 the plan stays the eager one-device plan above, where the reference
 sends one device through ``auto_parallel`` too (a deliberate break:
 ROADMAP).
+
+With ``num_stages`` > 1 (or NUM_STAGES), the plan is the reference's
+pipeline plan (``_PipelineTrainingPlan``): the forward loss is captured at
+micro-batch shapes, cut into stages by the stage ILP, decomposed into
+per-stage ``fx.GraphModule``s, and run as a verified fwd/bwd/Send/Recv/GA/
+Apply task DAG in the scheduler's 1F1B order over a list of devices, one a
+stage, with parameters and optimizer state held per stage. Its checkpoints
+have the eager plan's flat leaves, so a run moves between the two.
 """
 
 from __future__ import annotations
@@ -129,6 +137,51 @@ class TrainingPlan:
                     f"checkpoint leaf {tuple(src.shape)} {src.dtype} does "
                     f"not fit the plan's {tuple(dst.shape)} {dst.dtype}")
             dst.copy_(src)
+
+
+class _PipelineTrainingPlan(TrainingPlan):
+    """The pipeline plan (the reference's ``_PipelineTrainingPlan``): a
+    ``runtime.executor.PipelineExecutable`` holding the state per stage.
+    ``variables()`` assembles the global (params, opt_state), whose flat
+    leaves are the eager plan's, so ``save``/``restore`` cross between
+    the two runtimes."""
+
+    def __init__(self, exe, params, device: torch.device):
+        super().__init__(None, None, None, device, None)
+        self._exe = exe
+        self.pipeline = exe.prog
+        exe.load_variables(params)
+
+    @property
+    def executable(self):
+        return self._exe
+
+    def step(self, *batch) -> float:
+        return self._exe.step(*batch)
+
+    def variables(self):
+        """(params, opt_state): the live params; the optimizer state
+        assembled from the stages' (its leaves are theirs, not copies)."""
+        return (self._exe.fetch_variables(), self._exe.fetch_opt_state())
+
+    @torch.no_grad()
+    def _load(self, leaves) -> None:
+        """Load flat (params, opt_state) leaves: the params onto their
+        owner stages (re-initializing the stage states), then the state."""
+        live = self._device_state()
+        if len(leaves) != len(live):
+            raise ValueError(f"checkpoint holds {len(leaves)} leaves, the "
+                             f"plan's state {len(live)}")
+        for dst, src in zip(live, leaves):
+            if tuple(src.shape) != tuple(dst.shape) or src.dtype != dst.dtype:
+                raise ValueError(
+                    f"checkpoint leaf {tuple(src.shape)} {src.dtype} does "
+                    f"not fit the plan's {tuple(dst.shape)} {dst.dtype}")
+        n = self._exe.n_params
+        params = tree_unflatten(self._exe.params_tree,
+                                list(leaves[:n]))
+        self._exe.load_variables(params)
+        self._exe.load_opt_state(list(leaves[n:]))
 
 
 class _SpmdTrainingPlan(TrainingPlan):
@@ -254,7 +307,7 @@ def explore_parallelism(
     ``@zero`` modifiers, priced by the Evaluator on the loss's captured
     value-and-grad graph (parallel/exploration.py; reference:
     RunExplorationlMode, auto_parallel.cc:236). Needs no device. The
-    pipeline and sequence-parallel kinds come with ROADMAP items 13 and
+    pipeline and sequence-parallel kinds come with ROADMAP items 13b and
     14 and are recorded as ``excluded_kinds``."""
     from tepdist_tpu_torch.parallel.exploration import explore
 
@@ -276,6 +329,10 @@ def plan_training(
     annotations: Optional[Dict[int, Dict[str, Any]]] = None,
     var_mem_limit: Optional[int] = None,
     devices: Optional[Sequence] = None,
+    num_stages: Optional[int] = None,
+    intra_stage_tp: Optional[int] = None,
+    placement: str = "blocked",
+    interleave_groups: Optional[int] = None,
 ) -> TrainingPlan:
     """Plan a training loop for ``loss_fn(params, *batch)``.
 
@@ -296,7 +353,16 @@ def plan_training(
     ``annotations`` pins strategies as ``{flat invar index: {axis:
     DimStrategy}}`` over the captured step's inputs (params, then the
     optimizer state, then the batch); ``var_mem_limit`` (or VAR_MEM_LIMIT)
-    caps per-device variable bytes."""
+    caps per-device variable bytes.
+
+    Pipeline plans: ``num_stages`` > 1 (or NUM_STAGES when the argument is
+    absent) cuts the forward loss into that many stages with
+    ``num_micro_batches`` (default NUM_MICRO_BATCHES, else 2) micro
+    batches, run by ``runtime.executor.PipelineExecutable`` on
+    ``devices`` (one a stage, by default ``[device] * num_stages``; a
+    device may repeat). ``placement`` is "blocked" or "interleaved" (with
+    ``interleave_groups``). ``intra_stage_tp`` > 1 and more than one
+    device a stage raise ``NotImplementedError`` (ROADMAP item 13b)."""
     dev = resolve_device(device)
     env = ServiceEnv.get()
     if mode is None and env.opt_level == 0:
@@ -304,7 +370,7 @@ def plan_training(
     explored_winner = None
     comm_dtype = ""
     zero = False
-    if explore and topology is None:
+    if explore and topology is None and num_stages is None:
         if devices is not None:
             n_devices = len(devices)
         else:
@@ -334,6 +400,13 @@ def plan_training(
         if zero:
             log.info("exploration winner shards optimizer state over the "
                      "data axis (ZeRO)")
+    if num_stages is None:
+        num_stages = env.num_stages if env.num_stages > 0 else 1
+    if num_stages > 1:
+        return _plan_pipeline(loss_fn, optimizer, params, example_batch,
+                              dev, num_stages, num_micro_batches, devices,
+                              intra_stage_tp, placement, interleave_groups,
+                              comm_dtype, zero)
     if num_micro_batches is None and env.num_micro_batches > 0:
         num_micro_batches = env.num_micro_batches
     if num_micro_batches is None and not example_batch:
@@ -375,6 +448,40 @@ def plan_training(
     else:
         topology = MeshTopology(axes)
     return TrainingPlan(step_fn, params, opt_state, dev, topology, res)
+
+
+def _plan_pipeline(loss_fn, optimizer, params, example_batch, dev,
+                   num_stages, num_micro_batches, devices, intra_stage_tp,
+                   placement, interleave_groups, comm_dtype,
+                   zero) -> TrainingPlan:
+    """The pipeline path of ``plan_training`` (the reference's,
+    ``tepdist_tpu/train.py:302-328``): the REMAT_POLICY wrapper first,
+    then ``plan_pipeline`` on the loss (not on a GA step), then the task-
+    graph executable over the stage devices."""
+    from tepdist_tpu_torch.parallel.pipeline import plan_pipeline
+    from tepdist_tpu_torch.runtime.executor import PipelineExecutable
+
+    env = ServiceEnv.get()
+    M = num_micro_batches or (
+        env.num_micro_batches if env.num_micro_batches > 0 else 2)
+    params = tree_map(lambda p: p.to(dev), params)
+    example_batch = tree_map(lambda b: b.to(dev), example_batch)
+    prog = plan_pipeline(_remat(loss_fn), num_stages, M, params,
+                         *example_batch)
+    prog.comm_dtype = comm_dtype
+    prog.zero = zero
+    tp = intra_stage_tp
+    if tp is None and env.intra_stage_tp > 0:
+        tp = env.intra_stage_tp
+    if devices is None:
+        groups = (interleave_groups if placement == "interleaved"
+                  and interleave_groups else num_stages)
+        devices = [dev] * groups
+    exe = PipelineExecutable(
+        prog, devices=list(devices),
+        optimizer=optimizer, intra_stage_tp=tp or 1,
+        placement=placement, interleave_groups=interleave_groups)
+    return _PipelineTrainingPlan(exe, params, dev)
 
 
 def _plan_spmd(step_fn, params, opt_state, example_batch, dev, topology,
