@@ -64,6 +64,27 @@ calls (``plan_training`` + ``plan.step``, ``plan.save``/``restore``,
    seconds, peak memory, the seconds in each kind of task body of a
    traced seventh step and a profiled eighth; then each kernel against its
    plain version at the pipeline's micro batch [6*25, 1024, 64];
+5f. seq_kernels: attention alone at Llama 1B's heads (16 after the GQA
+   repeat, head_dim 128), bf16 causal, 1 x 16384 tokens, split over
+   [cuda:0] * 4 in the one-process form: the ring and Ulysses (flash
+   inner) against one whole-sequence call of the kernels (o, LSE, dQ, dK,
+   dV; SEQ_TOLERANCE), their launches per call (the ring: 4 causal and 6
+   full hops of [16, 4096, 128] each way; Ulysses 4 of [4, 16384, 128])
+   and the three timed by CUDA events; then each kernel at the hop shape,
+   causal and full, against its plain version;
+5g. seq_step: the slice phase's model, recipe, seed and batches with the
+   flash ring over [cuda:0] * 4 as attention (hops of [4*25, 256, 64])
+   through ``plan_training``: 6 steps, losses within SEQ_STEP_LOSS_RTOL of
+   the slice's, 2*L*M*10 forward and L*M*10 dQ and dK/dV launches a step,
+   step seconds beside the slice's, peak memory, a seventh step profiled
+   as the slice's is; then the kernels at that hop shape, causal and
+   full;
+5h. seq_plan: Llama 1B's width cut to 2 layers, batch 1 x 16384, planned
+   for 8 devices on the host: ``explore`` with its sequence candidates
+   (each priced, ring or Ulysses, the winner, the search seconds), then
+   the loss rewritten for a seq axis of 4 and planned on data 2 x seq 4,
+   which must hold a sequence op for every flash forward and no flash
+   forward;
 6. llama: Llama 1B at full width and depth (bench.py's recipe: batch 4,
    seq 512, ``adamw(1e-4)``) for 6 steps on the bytes of the repository's
    text files, packed with ``data/tokens.py`` and fed through the
@@ -581,7 +602,7 @@ def phase_slice():
         raise SystemExit(f"chip_smoke: launches {per_step} != {want}")
     _profile_step("GPT-2 1.5B", lambda: plan.step(tokens),
                   sorted(steady)[len(steady) // 2])
-    return launches
+    return launches, losses, seconds
 
 
 # Plan phase: the same model and recipe at bench.py's batch, uncut (48 x
@@ -788,7 +809,14 @@ def phase_spmd_plan():
         per_topology[key] = per_topology.get(key, 0) + 1
     status = {str(c["topology"]): [g.ilp_status for g in c["strategies"]]
               for c in best["candidates"]
-              if not c.get("comm_dtype") and not c.get("zero")}
+              if not c.get("comm_dtype") and not c.get("zero")
+              and "strategies" in c}
+    # The data x seq candidates are priced by hand (ring or Ulysses comm
+    # beside the data axis's), with no strategies of their own.
+    seq = [{"topology": str(c["topology"]), "impl": c["seq_impl"],
+            "predicted_step_seconds": c["cost"].total_duration,
+            "memory_feasible": c["cost"].memory_feasible}
+           for c in best["candidates"] if c.get("enum_kind") == "seq"]
     cost = best["cost"]
     # The token input's strategy in the fidelity data-8 candidate, planned
     # without annotations (the step graph's last placeholder).
@@ -809,6 +837,8 @@ def phase_spmd_plan():
           "explore_seconds": explore_s,
           "capture_seconds": phases.get("trace_ms", 0.0) / 1e3,
           "search_seconds": phases.get("spmd_ms", 0.0) / 1e3,
+          "seq_search_seconds": phases.get("seq_ms", 0.0) / 1e3,
+          "seq_candidates": seq,
           "candidates_per_topology": per_topology,
           "excluded_kinds": best.get("excluded_kinds"),
           "winner": {"topology": str(best["topology"]),
@@ -820,7 +850,7 @@ def phase_spmd_plan():
           "solver_status": status,
           "data8_token_strategy_unannotated": token_unannotated,
           "ranked": candidate_summary(best["candidates"], best)[:6]})
-    if best.get("excluded_kinds") != ["seq", "pipeline"]:
+    if best.get("excluded_kinds") != ["pipeline"]:
         raise SystemExit("chip_smoke: exploration did not record the "
                          "kinds it left out")
 
@@ -1125,6 +1155,424 @@ def phase_pipeline(eager_losses, eager_micro: int):
     del plan, exe
     torch.cuda.empty_cache()
     return launches
+
+
+# Sequence parallelism (ROADMAP item 14). seq_kernels: attention alone at
+# Llama 1B's heads (16 query heads after the GQA repeat, head_dim 128),
+# bf16, causal, batch 1 x 16384 tokens (within Llama 3.2 1B's published
+# 128k context), split over SEQ_RING = 4 ranks of one card
+# ([cuda:0] * 4), hops of [16, 4096, 128].
+SEQ_RING = 4
+SEQ_KERNELS_SHAPE = dict(B=1, H=16, T=16384, D=128)
+# The ring (and Ulysses) against one whole-sequence call of the kernels.
+# On fp32 operands the kernels phase's fp32 rule, elementwise. On bf16
+# operands each output's relative L2 distance to the whole call on
+# fp32-upcast inputs may be at most SEQ_GAP_FACTOR times the whole bf16
+# call's own distance there (its rounding gap), plus the fp32 rtol: the
+# ring rounds each hop's output, dQ, dK and dV to bf16 before it merges
+# them in fp32, so it may lie a little further from the fp32 answer than
+# the whole call, but not twice as far.
+SEQ_GAP_FACTOR = 2.0
+SEQ_TOLERANCE = ("fp32: |seq - whole| <= 2e-5 * max(1, max|whole|) + "
+                 "1e-4 * |whole| elementwise; bf16: ||seq - whole32|| / "
+                 "||whole32|| <= 2 * ||whole - whole32|| / ||whole32|| + "
+                 "1e-4, each of o, LSE, dQ, dK, dV")
+SEQ_OUTPUTS = ("o", "lse", "dq", "dk", "dv")
+# seq_step: the slice phase's model, recipe, seed and batches with the
+# flash ring as attention; the losses against the slice phase's, as the
+# spmd_step phase holds a different rounding path over six Adam steps.
+# The first micro batch's gradients through the ring are also held to
+# those through the whole-sequence kernels, each leaf in relative L2: at
+# 48 layers bf16 rounding alone puts the sound ring's leaves 1.6e-2 to
+# 2.2e-2 from the kernels' (the parity phase reads 7e-3 at 2 layers), a
+# ring with its full hops dropped or its merge weights off 0.8 and more
+# (tools/torch_seq_faults.py, PERF.md section 6).
+SEQ_STEP_LOSS_RTOL = 2e-3
+SEQ_GRAD_RL2 = 0.1
+# seq_plan: Llama 1B's width (dim 2048, 16 heads, 4 KV heads), depth cut
+# to 2 layers, batch 1 x 16384, planned for 8 devices on the host.
+SEQ_PLAN_LAYERS, SEQ_PLAN_DEVICES, SEQ_PLAN_TOKENS = 2, 8, 16384
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def seq_rule(got, got32, ref, ref32):
+    """({output: readings}, all within?) of the seq rule: ``got`` /
+    ``got32`` the sequence-parallel o, LSE, dQ, dK, dV on bf16 / fp32
+    operands, ``ref`` / ``ref32`` the whole-sequence call's."""
+    out = {}
+    for name, a, a32, r, r32 in zip(SEQ_OUTPUTS, got, got32, ref, ref32):
+        fp32_err, _, fp32_ok = _within(a32, r32, r32)
+        err, gap = _rel_l2(a, r32), _rel_l2(r, r32)
+        limit = SEQ_GAP_FACTOR * gap + FP32_RTOL
+        out[name] = {"fp32_max_abs_err": fp32_err,
+                     "bf16_max_abs_err": (a.float() - r.float()).abs()
+                     .max().item(),
+                     "bf16_rel_l2": err, "whole_bf16_rel_l2": gap,
+                     "bf16_limit": limit, "ok": fp32_ok and err <= limit}
+    return out, all(r["ok"] for r in out.values())
+
+
+def seq_inputs(shape, device):
+    """The seq_kernels phase's seeded bf16 q, k, v, dO and fp32 dLSE."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(400)
+    q, k, v, do = (torch.randn(*shape, generator=gen, device=device)
+                   .bfloat16() for _ in range(4))
+    dlse = torch.randn(*shape[:3], generator=gen, device=device)
+    return q, k, v, do, dlse
+
+
+def whole_sequence(q, k, v, do, dlse, scale, dtype):
+    """[o, lse, dq, dk, dv] of one whole-sequence call of the flash
+    kernels on [B, H, T, D] inputs cast to ``dtype``, causal."""
+    from tepdist_tpu_torch.ops import flash_attention as fa
+
+    B, H, T, D = q.shape
+    flat = [t.to(dtype).reshape(B * H, T, D).contiguous()
+            for t in (q, k, v, do)]
+    o, lse = fa.flash_fwd(*flat[:3], True, scale)
+    delta = ((flat[3].float() * o.float()).sum(-1)
+             - dlse.reshape(B * H, T)).contiguous()
+    args = (*flat, lse, delta, True, scale)
+    dk, dv = fa.flash_dkv(*args)
+    return [o.reshape(B, H, T, D), lse.reshape(B, H, T),
+            fa.flash_dq(*args).reshape(B, H, T, D), dk.reshape(B, H, T, D),
+            dv.reshape(B, H, T, D)]
+
+
+def seq_call(impl, dtype, inputs, ring, scale):
+    """([o, lse, dq, dk, dv], forward launches, backward launches) of the
+    flash ``impl`` ("ring" or "ulysses") over ``ring`` on the
+    ``seq_inputs`` q, k, v cast to ``dtype``, causal, with dO and dLSE as
+    the cotangents; the launches by kernel and mask."""
+    import torch
+
+    from tepdist_tpu_torch.ops import flash_attention as fa
+    from tepdist_tpu_torch.ops.ring_attention import _SeqAttn
+
+    q, k, v, do, dlse = inputs
+    leaves = [t.to(dtype).requires_grad_() for t in (q, k, v)]
+    fa.reset_launch_counts()
+    o, lse = _SeqAttn.apply(*leaves, ring, True, scale, q.shape[1], impl,
+                            "flash")
+    torch.cuda.synchronize()
+    fwd = dict(fa.mask_launch_counts)
+    fa.reset_launch_counts()
+    grads = torch.autograd.grad((o, lse), leaves, (do.to(dtype), dlse))
+    torch.cuda.synchronize()
+    bwd = dict(fa.mask_launch_counts)
+    fa.reset_launch_counts()
+    return [o.detach(), lse.detach(), *grads], fwd, bwd
+
+
+def seq_checked(impl, inputs, ring, scale, ref, ref32):
+    """(readings, within?, forward launches, backward launches) of
+    ``impl`` in bf16 and in fp32 against the whole-sequence call's
+    ``ref`` / ``ref32`` under the seq rule."""
+    import torch
+
+    got, fwd, bwd = seq_call(impl, torch.bfloat16, inputs, ring, scale)
+    got32, _, _ = seq_call(impl, torch.float32, inputs, ring, scale)
+    readings, ok = seq_rule(got, got32, ref, ref32)
+    return readings, ok, fwd, bwd
+
+
+def phase_seq_kernels():
+    """Ring and Ulysses attention in the one-process form over
+    ``[cuda:0] * 4`` at [1, 16, 16384, 128] bf16 causal: o, LSE, dQ, dK
+    and dV against one whole-sequence call of the flash kernels, the
+    launches per call, and the times of the three. Returns the launches
+    by kernel and mask of one ring call, forward and backward."""
+    import torch
+
+    from tepdist_tpu_torch.ops import flash_attention as fa
+    from tepdist_tpu_torch.ops.ring_attention import _SeqAttn, ring_hops
+    from tepdist_tpu_torch.ops.seq_comm import DeviceTransport
+
+    B, H, T, D = (SEQ_KERNELS_SHAPE[k] for k in "BHTD")
+    inputs = seq_inputs((B, H, T, D), device="cuda")
+    q, k, v, do, dlse = inputs
+    scale = 1.0 / math.sqrt(D)
+    ring = DeviceTransport([torch.device("cuda", 0)] * SEQ_RING)
+
+    ref, ref32 = (whole_sequence(q, k, v, do, dlse, scale, x)
+                  for x in (torch.bfloat16, torch.float32))
+    out = {}
+    launches = {}
+    for impl in ("ring", "ulysses"):
+        readings, ok, fwd, bwd = seq_checked(impl, inputs, ring, scale, ref,
+                                             ref32)
+        out[impl] = {"outputs": readings, "ok": ok,
+                     "forward_launches": fwd, "backward_launches": bwd}
+        launches[impl] = (fwd, bwd)
+    del ref, ref32
+    hops = ring_hops(SEQ_RING, True)
+    want_ring_fwd = {"flash_fwd/causal": hops["diag"],
+                     "flash_fwd/full": hops["full"]}
+    want_ring_bwd = {f"{n}/{m}": hops[h] for n in ("flash_dq", "flash_dkv")
+                     for m, h in (("causal", "diag"), ("full", "full"))}
+    want_uly_fwd = {"flash_fwd/causal": SEQ_RING}
+    want_uly_bwd = {"flash_dq/causal": SEQ_RING,
+                    "flash_dkv/causal": SEQ_RING}
+
+    # Times: forward, and backward from saved results, of the ring,
+    # Ulysses and the whole-sequence kernels (CUDA events).
+    times = {}
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    for impl in ("ring", "ulysses"):
+        def fwd_fn(impl=impl):
+            return _SeqAttn.apply(*leaves, ring, True, scale, H, impl,
+                                  "flash")
+        o, lse = fwd_fn()
+        times[impl] = {
+            "forward_ms": cuda_ms(fwd_fn, iters=5, windows=3),
+            "backward_ms": cuda_ms(lambda: torch.autograd.grad(
+                (o, lse), leaves, (do, dlse), retain_graph=True), iters=5,
+                windows=3)}
+        del o, lse
+    flat = [t.detach().reshape(B * H, T, D).contiguous()
+            for t in (q, k, v, do)]
+    o, lse = fa.flash_fwd(*flat[:3], True, scale)
+    delta = ((flat[3].float() * o.float()).sum(-1)
+             - dlse.reshape(B * H, T)).contiguous()
+    args = (*flat, lse, delta, True, scale)
+    times["whole"] = {
+        "forward_ms": cuda_ms(lambda: fa.flash_fwd(*flat[:3], True, scale),
+                          iters=5, windows=3),
+        "backward_ms": cuda_ms(lambda: (fa.flash_dq(*args),
+                                        fa.flash_dkv(*args)),
+                               iters=5, windows=3)}
+    fa.reset_launch_counts()
+    emit({"phase": "seq_kernels", "model": "Llama 1B attention",
+          "shape": f"[{B}, {H}, {T}, {D}] bf16 causal",
+          "ring": f"[cuda:0] * {SEQ_RING} (one-process form)",
+          "hop_shape": f"[{B * H}, {T // SEQ_RING}, {D}]",
+          "tolerance": SEQ_TOLERANCE, "results": out,
+          "expected_ring_launches": [want_ring_fwd, want_ring_bwd],
+          "expected_ulysses_launches": [want_uly_fwd, want_uly_bwd],
+          "times": times,
+          "ring_over_whole": {
+              k: times["ring"][k][0] / times["whole"][k][0]
+              for k in ("forward_ms", "backward_ms")}})
+    bad = [impl for impl, r in out.items() if not r["ok"]]
+    if bad:
+        raise SystemExit(f"chip_smoke: {bad} disagree with the whole-"
+                         f"sequence kernels")
+    if launches["ring"] != (want_ring_fwd, want_ring_bwd):
+        raise SystemExit(f"chip_smoke: ring launches {launches['ring']}")
+    if launches["ulysses"] != (want_uly_fwd, want_uly_bwd):
+        raise SystemExit(f"chip_smoke: Ulysses launches "
+                         f"{launches['ulysses']}")
+    return {**launches["ring"][0], **launches["ring"][1]}
+
+
+def _leaf_names(tree, prefix=""):
+    """Names of ``tree``'s leaves by dict key path, in tree_leaves order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}{k}/")]
+    return [prefix[:-1]]
+
+
+def seq_grad_gaps(cfg, params, tokens, attn):
+    """{leaf: relative L2 distance} between the gradients of the stacked
+    GPT-2 loss on ``tokens`` with ``attn`` as attention and with the
+    whole-sequence kernels (the slice phase's attention)."""
+    import torch
+
+    from tepdist_tpu_torch.core.tree import tree_leaves, tree_unflatten
+    from tepdist_tpu_torch.models import gpt2
+
+    def grads(attn_impl):
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        loss = gpt2.loss_fn_stacked(tree_unflatten(params, leaves), tokens,
+                                    cfg, attn_impl=attn_impl)
+        return torch.autograd.grad(loss, leaves)
+
+    want = grads(None)
+    got = grads(attn)
+    return {name: _rel_l2(a, b) for name, a, b in
+            zip(_leaf_names(params), got, want)}
+
+
+def phase_seq_step(slice_losses, slice_seconds):
+    """GPT-2 1.5B at full width and depth, the slice phase's recipe, seed
+    and batches, its attention the flash ring over ``[cuda:0] * 4``
+    (hops of [4*25, 256, 64]), through ``plan_training``: the first micro
+    batch's gradients against the whole-sequence kernels', then 6 steps,
+    losses against the slice phase's, 2*L*M*10 forward launches a step
+    and L*M*10 of dQ and of dK/dV. Returns the launches over the 6 steps
+    by kernel and mask."""
+    import torch
+
+    from tepdist_tpu_torch.models import gpt2
+    from tepdist_tpu_torch.ops import flash_attention as fa
+    from tepdist_tpu_torch.ops import ring_attention
+    from tepdist_tpu_torch.ops.ring_attention import ring_hops
+    from tepdist_tpu_torch.optim import adamw_bf16
+    from tepdist_tpu_torch.train import plan_training
+
+    torch.cuda.empty_cache()
+    cfg = _config(48)
+    L, M = cfg.n_layer, MICRO
+    devices = [torch.device("cuda", 0)] * SEQ_RING
+
+    def attn(q, k, v):
+        return ring_attention(q, k, v, devices, inner="flash")
+
+    params = gpt2.stacked_init_params(cfg, seed=0, device="cuda")
+    tokens = gpt2.fake_batch(cfg, BATCH, SEQ, seed=0, device="cuda")
+    # The first micro batch's gradients through the ring against those
+    # through the whole-sequence kernels, before any step.
+    grad_gaps = seq_grad_gaps(cfg, params, tokens[:BATCH // M], attn)
+    worst = max(grad_gaps, key=grad_gaps.get)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    plan = plan_training(
+        lambda p, t: gpt2.loss_fn_stacked(p, t, cfg, attn_impl=attn),
+        adamw_bf16(1e-4), params, tokens, num_micro_batches=MICRO)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    hops = ring_hops(SEQ_RING, True)
+    calls = L * M
+    want = {"flash_fwd/causal": 2 * calls * hops["diag"],
+            "flash_fwd/full": 2 * calls * hops["full"],
+            "flash_dq/causal": calls * hops["diag"],
+            "flash_dq/full": calls * hops["full"],
+            "flash_dkv/causal": calls * hops["diag"],
+            "flash_dkv/full": calls * hops["full"]}
+    torch.cuda.reset_peak_memory_stats()
+    losses, seconds, per_step = [], [], []
+    total = {}
+    for _ in range(STEPS):
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses.append(plan.step(tokens))   # returns after a device sync
+        seconds.append(time.perf_counter() - t0)
+        step = dict(fa.mask_launch_counts)
+        per_step.append(step)
+        for key, n in step.items():
+            total[key] = total.get(key, 0) + n
+    fa.reset_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, slice_losses)]
+    steady = seconds[1:]
+    emit({"phase": "seq_step", "model": "GPT-2 1.5B", "n_layer": L,
+          "n_embd": cfg.n_embd, "seq": SEQ, "batch": BATCH,
+          "micro_batches": M, "cut": "batch 48 -> 8 and micro batches "
+          "16 -> 2 (the slice phase's recipe)",
+          "attention": f"flash ring over [cuda:0] * {SEQ_RING}, hops of "
+                       f"[{BATCH // M}*25, {SEQ // SEQ_RING}, 64]",
+          "setup_seconds": setup_s, "losses": losses,
+          "slice_losses": list(slice_losses), "loss_rel_diff": rel,
+          "loss_rtol": SEQ_STEP_LOSS_RTOL,
+          "first_grad_rel_l2": grad_gaps, "worst_grad_leaf": worst,
+          "grad_rel_l2_tol": SEQ_GRAD_RL2, "step_seconds": seconds,
+          "slice_step_seconds": list(slice_seconds),
+          "tokens_per_s": BATCH * SEQ * len(steady) / sum(steady),
+          "max_memory_allocated_bytes": peak,
+          "launches_per_step": per_step, "expected_per_step": want})
+    if not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"chip_smoke: non-finite loss {losses}")
+    if max(rel) > SEQ_STEP_LOSS_RTOL:
+        raise SystemExit(f"chip_smoke: ring losses {losses} differ from "
+                         f"the slice phase's {slice_losses}")
+    if not grad_gaps[worst] <= SEQ_GRAD_RL2:
+        raise SystemExit(f"chip_smoke: the ring's gradient of {worst} lies "
+                         f"{grad_gaps[worst]} from the kernels'")
+    if any(step != want for step in per_step):
+        raise SystemExit(f"chip_smoke: launches {per_step} != {want}")
+    _profile_step("GPT-2 1.5B ring", lambda: plan.step(tokens),
+                  sorted(steady)[len(steady) // 2])
+    del plan, params
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_seq_plan():
+    """Llama 1B's width, depth cut to 2 layers, batch 1 x 16384, planned
+    for 8 devices on the host from fake tensors: ``explore`` with the
+    sequence candidates (each priced, ring or Ulysses per seq size, the
+    winner, the search seconds); then the forward loss rewritten for a
+    seq axis of 4 and planned on data 2 x seq 4, which must leave no
+    flash forward unrewritten."""
+    import torch
+
+    from tepdist_tpu_torch.core.mesh import MeshTopology
+    from tepdist_tpu_torch.graph.fx_graph import trace_graph
+    from tepdist_tpu_torch.models import llama
+    from tepdist_tpu_torch.parallel.attention_motif import seq_rewritten_loss
+    from tepdist_tpu_torch.parallel.auto_parallel import plan_axes
+    from tepdist_tpu_torch.parallel.exploration import (candidate_summary,
+                                                        explore)
+    from tepdist_tpu_torch.parallel.performance_utils import chip_spec
+
+    cfg = dataclasses.replace(llama.CONFIGS["1B"], n_layer=SEQ_PLAN_LAYERS,
+                              n_ctx=SEQ_PLAN_TOKENS, attn="flash")
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    tokens = llama.fake_batch(cfg, 1, SEQ_PLAN_TOKENS, seed=0,
+                              device="cuda")
+
+    def loss_fn(p, t):
+        return llama.loss_fn(p, t, cfg)
+
+    t0 = time.perf_counter()
+    best = explore(loss_fn, params, tokens, n_devices=SEQ_PLAN_DEVICES)
+    explore_s = time.perf_counter() - t0
+    report = best.get("report") or {}
+    phases = report.get("phases", {})
+    seq = [c for c in best["candidates"] if c.get("enum_kind") == "seq"]
+    prunes = [p for p in report.get("prunes", [])
+              if p.get("kind") == "seq"]
+    emit({"phase": "seq_plan", "part": "explore", "model": "Llama 1B",
+          "n_layer": cfg.n_layer, "dim": cfg.dim, "n_head": cfg.n_head,
+          "n_kv_head": cfg.n_kv_head, "batch": 1,
+          "seq": SEQ_PLAN_TOKENS, "cut": "depth 16 -> 2 layers",
+          "n_devices": SEQ_PLAN_DEVICES, "chip": chip_spec().name,
+          "explore_seconds": explore_s,
+          "capture_seconds": phases.get("trace_ms", 0.0) / 1e3,
+          "spmd_search_seconds": phases.get("spmd_ms", 0.0) / 1e3,
+          "seq_search_seconds": phases.get("seq_ms", 0.0) / 1e3,
+          "seq_candidates": [
+              {"topology": str(c["topology"]), "impl": c["seq_impl"],
+               "predicted_step_seconds": c["cost"].total_duration,
+               "coll_ratio": c["cost"].coll_ratio,
+               "memory_feasible": c["cost"].memory_feasible}
+              for c in seq],
+          "seq_prunes": prunes,
+          "winner": str(best["topology"]),
+          "excluded_kinds": best.get("excluded_kinds"),
+          "ranked": candidate_summary(best["candidates"], best)[:6]})
+    exceptions = [p for p in prunes
+                  if p.get("reason") == "planning_exception"]
+    if not seq or exceptions:
+        raise SystemExit(f"chip_smoke: no seq candidate priced at Llama 1B "
+                         f"width ({len(seq)} priced, {exceptions})")
+
+    t0 = time.perf_counter()
+    rewritten, impl = seq_rewritten_loss(loss_fn, 4, params, tokens)
+    graph = trace_graph(rewritten, params, tokens)[0]
+    topo = MeshTopology([("data", 2), ("seq", 4)])
+    strategies = plan_axes(graph, topo)
+    plan_s = time.perf_counter() - t0
+    emit({"phase": "seq_plan", "part": "data2_seq4",
+          "impl": impl, "motifs": len(rewritten.motifs),
+          "seq_attn_nodes": graph.count("seq_attn"),
+          "flash_fwd_nodes": graph.count("flash_fwd"),
+          "solver_status": [g.ilp_status for g in strategies],
+          "seconds": plan_s})
+    if (graph.count("seq_attn") != cfg.n_layer
+            or graph.count("flash_fwd") or len(rewritten.motifs)
+            != cfg.n_layer):
+        raise SystemExit("chip_smoke: the seq rewrite left a flash "
+                         "forward unrewritten")
+    del params, tokens
+    torch.cuda.empty_cache()
 
 
 # Device-time groups of the profiled step, by kernel name (first match).
@@ -2020,7 +2468,7 @@ def main() -> int:
     phase_telemetry()
     gpt2_case, llama_case, remat_case = phase_kernels()
     phase_parity()
-    gpt2_launches = phase_slice()
+    gpt2_launches, slice_losses, slice_seconds = phase_slice()
     plan_launches, plan_mb, plan_losses = phase_plan()
     torch.cuda.empty_cache()
     # The plan path's kernels at the micro batch it chose.
@@ -2035,6 +2483,24 @@ def main() -> int:
     pipe_case = _checked_case("pipeline_path", dict(
         B=pipe_mb, H=25, T=SEQ, D=64, dtype=torch.bfloat16, causal=True),
         seed=300, time_it=True)
+    # Sequence parallelism: the ring and Ulysses at long context, the
+    # kernels at both hop shapes, GPT-2 1.5B through the ring, the seq
+    # axis planned at Llama 1B width.
+    seq_kernel_launches = phase_seq_kernels()
+    H, D = SEQ_KERNELS_SHAPE["H"], SEQ_KERNELS_SHAPE["D"]
+    hop_T = SEQ_KERNELS_SHAPE["T"] // SEQ_RING
+    seq_hop_cases = {causal: _checked_case(
+        f"seq_kernels_hop_{'causal' if causal else 'full'}", dict(
+            B=SEQ_KERNELS_SHAPE["B"], H=H, T=hop_T, D=D,
+            dtype=torch.bfloat16, causal=causal), seed=500 + causal,
+        time_it=True) for causal in (True, False)}
+    seq_step_launches = phase_seq_step(slice_losses, slice_seconds)
+    step_hop_cases = {causal: _checked_case(
+        f"seq_step_hop_{'causal' if causal else 'full'}", dict(
+            B=BATCH // MICRO, H=25, T=SEQ // SEQ_RING, D=64,
+            dtype=torch.bfloat16, causal=causal), seed=502 + causal,
+        time_it=True) for causal in (True, False)}
+    phase_seq_plan()
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         llama_launches, save = phase_llama(workdir)
@@ -2074,6 +2540,29 @@ def main() -> int:
             if not launches[name]:
                 raise SystemExit(f"chip_smoke: {name} was not launched on "
                                  f"the {shape} path")
+    for shape, cases, launches in (
+            (f"[1*{H}, {hop_T}, {D}] bf16 (Llama 1B heads at 16384 tokens, "
+             f"a ring hop of seq_kernels: one ring call)", seq_hop_cases,
+             seq_kernel_launches),
+            (f"[{BATCH // MICRO}*25, {SEQ // SEQ_RING}, 64] bf16 (GPT-2 "
+             f"1.5B seq_step: a ring hop)", step_hop_cases,
+             seq_step_launches)):
+        for causal, case in cases.items():
+            mask = "causal" if causal else "full"
+            for name, (source, replaces) in KERNELS.items():
+                r = case[name]
+                n = launches.get(f"{name}/{mask}", 0)
+                rows.append({"name": name, "shape": f"{shape} {mask}",
+                             "route": "cuda", "source": source,
+                             "replaces": replaces, "launches": n,
+                             "max_abs_err": r["max_abs_err"],
+                             "ms": r["ms"], "plain_ms": r["plain_ms"],
+                             "bound_ms": r["bound_ms"],
+                             "bound_by": r["bound_by"],
+                             "library_ms": r["library_ms"]})
+                if not n:
+                    raise SystemExit(f"chip_smoke: {name} was not launched "
+                                     f"on the {shape} {mask} path")
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

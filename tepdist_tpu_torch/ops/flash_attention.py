@@ -46,11 +46,14 @@ DTYPES = (torch.float32, torch.bfloat16)
 # successful kernel launch counts, never a plain-version call.
 launch_counts: Dict[str, int] = {"flash_fwd": 0, "flash_dq": 0,
                                  "flash_dkv": 0}
+# The same launches split by mask: "flash_fwd/causal", "flash_fwd/full".
+mask_launch_counts: Dict[str, int] = {}
 
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+    mask_launch_counts.clear()
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -114,6 +117,9 @@ def _launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
     launch_counts[name] += 1
+    # args end with (..., causal, scale): _meta's order.
+    key = f"{name}/{'causal' if args[-2] else 'full'}"
+    mask_launch_counts[key] = mask_launch_counts.get(key, 0) + 1
 
 
 def _meta(q: torch.Tensor, causal: bool, scale: float):

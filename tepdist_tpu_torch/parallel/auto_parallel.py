@@ -183,11 +183,27 @@ def plan_axes(
                 axis_forbidden[v] = axis_forbidden.get(v, set()) | reserved
         if name == "seq":
             # The sequence axis is owned by the ring/Ulysses attention
-            # rewrite, which the port has not yet.
-            raise NotImplementedError(
-                "a 'seq' axis needs sequence parallelism (ring/Ulysses "
-                "attention), ROADMAP item 14")
-        if mode == "rule":
+            # lowering (parallel/attention_motif.py). A graph with closed
+            # motifs (a forward graph) gets a seq strategy that prices and
+            # propagates the axis; a graph rewritten before capture holds
+            # the sequence ops, the axis propagates from them, and the
+            # SPMD transform lowers them (auto_parallel rewrites a graph
+            # with closed motifs before it plans).
+            from tepdist_tpu_torch.parallel.attention_motif import (
+                build_anchored_seq_strategy, build_seq_strategy,
+                detect_motifs, seq_op_nodes)
+            motifs = detect_motifs(graph)
+            if motifs:
+                gs = build_seq_strategy(graph, size, motifs)
+            elif seq_op_nodes(graph):
+                gs = build_anchored_seq_strategy(graph, size)
+            else:
+                raise ValueError(
+                    "topology requests a 'seq' axis but the graph has no "
+                    "rewritable attention motif (grad graphs hide the "
+                    "motif — plan via plan_training, which rewrites "
+                    "attention BEFORE differentiation)")
+        elif mode == "rule":
             gs = FastSpmdStrategy(graph, name, size, fixed).run()
         else:
             gs = CostSpmdStrategy(
@@ -448,6 +464,28 @@ def _import_strategy(d: Dict[str, Any], by_name) -> GraphStrategy:
     return GraphStrategy(**d)
 
 
+def _rewrite_seq_motifs(graph: FxGraph, seq_size: int,
+                        flat_args: List[Any]) -> FxGraph:
+    """``graph`` with its closed attention motifs replaced by the sequence
+    op, ring or Ulysses as priced for ``seq_size`` ranks, captured anew
+    over the same flat inputs, so that a ``seq`` axis is lowered from the
+    op's nodes. A graph without closed motifs comes back as it is
+    (``plan_axes`` plans the sequence ops it holds, or raises)."""
+    from tepdist_tpu_torch.parallel.attention_motif import (
+        best_seq_comm, build_ring_rewritten, detect_motifs)
+
+    motifs = detect_motifs(graph)
+    if not motifs:
+        return graph
+    impl, _ = best_seq_comm(motifs, seq_size, with_backward=True)
+    for m in motifs:
+        m.impl = impl
+    rewritten, _, _ = trace_graph(build_ring_rewritten(graph, motifs,
+                                                       seq_size),
+                                  *flat_args, functional=True)
+    return rewritten
+
+
 def auto_parallel(
     fn: Callable,
     topology: MeshTopology,
@@ -478,6 +516,10 @@ def auto_parallel(
         annotations = None
     graph, in_tree, out_tree = trace_graph(fn, *example_args,
                                            functional=True, **example_kwargs)
+    seq_size = dict(topology.device_axes()).get("seq", 1)
+    if seq_size > 1:
+        graph = _rewrite_seq_motifs(
+            graph, seq_size, tree_leaves((example_args, example_kwargs)))
     if var_mem_limit is None and env.var_mem_limit > 0:
         var_mem_limit = env.var_mem_limit
 
@@ -547,20 +589,22 @@ def auto_parallel_explore(
 ) -> Any:
     """Exploration mode (reference: AutoParallel::RunExplorationlMode,
     auto_parallel.cc:236): enumerate proposals, plan each, keep the
-    Evaluator-minimal one — over the SPMD part of the candidate space
-    (parallel/exploration.py), the one ``train.plan_training`` searches.
-    The sequence-parallel and pipeline candidates of the reference come
-    with ROADMAP items 13 and 14; until then the report records them as
-    ``excluded_kinds``.
+    Evaluator-minimal one — over the candidate space of
+    parallel/exploration.py, the one ``train.plan_training`` searches.
 
     When ``fn`` is a scalar-output loss of the form ``fn(params, *batch)``,
     the candidates are priced on its value-and-grad graph (the executed
-    step is the gradient), as in the reference.
+    step is the gradient), as in the reference, and the space includes
+    the sequence-parallel meshes (priced with the ring/Ulysses cost); a
+    seq winner is lowered from ``fn`` rewritten by
+    ``attention_motif.seq_rewritten_loss``. The pipeline candidates come
+    with ROADMAP item 13b; the report records them as ``excluded_kinds``.
 
     The winner comes back as a lowered :class:`ParallelPlan` with
     ``.cost`` and ``.candidates`` attached (planning needs no devices;
     running it needs a process group of the winner's size)."""
     from tepdist_tpu_torch.parallel.exploration import (
+        seq_candidates,
         spmd_candidates,
         winner_lowering_postcheck,
     )
@@ -589,7 +633,14 @@ def auto_parallel_explore(
                                      num_micro_batches)
         if _col is not None:
             _col.phase("spmd", _time.perf_counter() - _t0)
-    excluded = ["seq", "pipeline"]
+        if scalar_loss:
+            batch_rows = tree_leaves(example_args[1:])[0].shape[0]
+            _t0 = _time.perf_counter()
+            candidates += seq_candidates(price_graph, num_devices,
+                                         batch_rows)
+            if _col is not None:
+                _col.phase("seq", _time.perf_counter() - _t0)
+    excluded = ["pipeline"] if scalar_loss else ["seq", "pipeline"]
     if not candidates:
         raise RuntimeError("no feasible topology proposal")
 
@@ -597,8 +648,8 @@ def auto_parallel_explore(
     for best in sorted(candidates, key=lambda c: c["cost"].key()):
         try:
             plan = _materialize_explored(
-                best, graph, in_tree, out_tree, annotations, state_alias,
-                price_graph is graph, candidates)
+                best, fn, graph, in_tree, out_tree, example_args,
+                annotations, state_alias, price_graph is graph, candidates)
         except Exception as e:  # noqa: BLE001 — fall to the runner-up
             log.warning("winner %s failed to materialize (%s); trying "
                         "the runner-up", best.get("topology", best["kind"]),
@@ -629,16 +680,29 @@ def auto_parallel_explore(
     raise RuntimeError("no proposal could be materialized")
 
 
-def _materialize_explored(best, graph, in_tree, out_tree, annotations,
-                          state_alias, priced_on_fn_graph, candidates):
-    """Lower one explored SPMD candidate into its plan form."""
+def _materialize_explored(best, fn, graph, in_tree, out_tree, example_args,
+                          annotations, state_alias, priced_on_fn_graph,
+                          candidates):
+    """Lower one explored candidate into its plan form."""
     topo = best["topology"]
-    if any(n == "seq" and s > 1 for n, s in topo.device_axes()):
-        raise NotImplementedError(
-            "a 'seq' winner needs sequence parallelism, ROADMAP item 14")
     # Candidate strategies were planned on the PRICING graph; when that is
     # the fn graph itself (non-scalar fn) they can be reused directly.
     strategies = best.get("strategies") if priced_on_fn_graph else None
+    seq_size = dict(topo.device_axes()).get("seq", 1)
+    if seq_size > 1:
+        # Materialize the seq winner: rewrite the attention motifs to the
+        # priced ring/Ulysses algorithm BEFORE planning, so the sequence
+        # dim stays split through the sequence op (the lowering
+        # plan_training applies). Strict motif detection: an escaping
+        # motif was priceable but is not rewritable, and the caller's loop
+        # falls back to the runner-up.
+        from tepdist_tpu_torch.parallel.attention_motif import (
+            seq_rewritten_loss)
+
+        fn_rw, _impl = seq_rewritten_loss(fn, seq_size, *example_args)
+        graph, in_tree, out_tree = trace_graph(fn_rw, *example_args,
+                                               functional=True)
+        strategies = None
     strategies, _ = plan_on_rank0(graph, lambda: (
         strategies if strategies is not None
         else plan_axes(graph, topo, annotations, "cost"), None))

@@ -101,6 +101,87 @@ def spmd_candidates(graph, n_devices: int,
     return out
 
 
+def seq_candidates(graph, n_devices: int,
+                   batch_rows: int) -> List[Dict[str, Any]]:
+    """Sequence-parallel data x seq proposals, priced with the cheaper of
+    the ring and Ulysses attention comm (forward and reverse): the
+    backward nodes are invisible to the forward-seeded propagation, so
+    the generic evaluator would overprice seq compute."""
+    from tepdist_tpu_torch.core.mesh import MeshTopology
+    from tepdist_tpu_torch.graph.fx_graph import var_bytes, var_shape
+    from tepdist_tpu_torch.parallel.attention_motif import (best_seq_comm,
+                                                            detect_motifs)
+    from tepdist_tpu_torch.parallel.auto_parallel import plan_axes
+    from tepdist_tpu_torch.parallel.evaluator import Cost, Evaluator
+    from tepdist_tpu_torch.parallel.performance_utils import (
+        OPT_STATE_FACTOR, PerfUtils, chip_spec)
+    from tepdist_tpu_torch.parallel.sync_free import (
+        estimate_peak_activation_bytes)
+
+    motifs = detect_motifs(graph, allow_escape=True)
+    if not motifs:
+        return []
+    out: List[Dict[str, Any]] = []
+    for s in (2, 4, 8, 16):
+        if s > n_devices or n_devices % s:
+            observatory.record_prune(
+                "seq", f"seq={s}", "enumeration_skip",
+                message=f"seq={s} does not divide {n_devices} devices")
+            continue
+        d = n_devices // s
+        if any(m.seq_len % s for m in motifs) or batch_rows % max(d, 1):
+            observatory.record_prune(
+                "seq", f"seq={s}", "enumeration_skip",
+                message=f"seq_len or batch_rows not divisible at seq={s}")
+            continue
+        axes = ([("data", d)] if d > 1 else []) + [("seq", s)]
+        topo = MeshTopology(axes)
+        try:
+            # A data x seq mesh shards a transformer's whole compute
+            # (every tensor carries the batch or token dim); comm = the
+            # data axis's own pricing (gradient reduces) + the exposed
+            # ring (forward + reverse).
+            spec = chip_spec()
+            impl, comm = best_seq_comm(motifs, s, spec,
+                                        with_backward=True)
+            if d > 1:
+                topo_d = MeshTopology([("data", d)])
+                gs_d = plan_axes(graph, topo_d, None, "cost")[0]
+                # The re-derived pricing the Evaluator applies to the
+                # rival SPMD candidates.
+                comm += Evaluator(topo_d).derived_comm(graph, gs_d)
+            # The COMM_OVERLAP discount the Evaluator applies to the
+            # rival candidates, so hand-priced ones compete evenly.
+            overlap = min(max(ServiceEnv.get().comm_overlap, 0.0), 1.0)
+            comm *= (1.0 - overlap)
+            compute_t = PerfUtils.compute_time(
+                graph.total_flops() / n_devices, spec)
+            state = sum(var_bytes(v) for v in graph.invars)
+            act = estimate_peak_activation_bytes(graph) / n_devices
+            # The optimizer-state charge of the rival candidates (grads =
+            # the non-scalar outputs of the value-and-grad capture).
+            opt_bytes = OPT_STATE_FACTOR * sum(
+                var_bytes(ov) for ov in graph.outvars
+                if ov is not None and var_shape(ov))
+            total = compute_t + comm
+            budget = spec.hbm_gb * 1e9 * 0.9
+            peak = state + act + opt_bytes
+            cost = Cost(
+                total_duration=total,
+                compute_efficiency=compute_t / total if total else 0.0,
+                coll_ratio=comm / total if total else 0.0,
+                bubble_ratio=0.0,
+                peak_bytes_per_device=peak,
+                memory_feasible=peak <= budget,
+                opt_state_bytes_per_device=opt_bytes)
+            out.append({"kind": "spmd", "topology": topo, "cost": cost,
+                        "enum_kind": "seq", "seq_impl": impl})
+        except Exception as e:  # noqa: BLE001 — infeasible proposal
+            observatory.record_prune("seq", str(topo),
+                                     "planning_exception", exc=e)
+    return out
+
+
 # ----------------------------------------------------------------------
 # The unified explorer
 # ----------------------------------------------------------------------
@@ -112,20 +193,21 @@ def explore(
     n_devices: int,
     num_micro_batches: int = 4,
     include_pipeline: bool = False,
-    include_seq: bool = False,
+    include_seq: bool = True,
     entry_point: str = "explore",
 ) -> Dict[str, Any]:
     """Exploration over the candidate space (reference:
     RunExplorationlMode over DeviceSplitPlan proposals): evaluate the SPMD
-    mesh factorizations and their modifiers under the analytic cost model
-    on the loss's value-and-grad graph, captured on fake tensors (no
-    device is needed); return the winner as ``{"kind": "spmd", ...,
+    mesh factorizations and their modifiers, and the sequence-parallel
+    data x seq meshes (``include_seq``), under the analytic cost model on
+    the loss's value-and-grad graph, captured on fake tensors (no device
+    is needed); return the winner as ``{"kind": "spmd", ...,
     "candidates": [...]}``.
 
-    ``include_pipeline`` and ``include_seq`` must stay False until the
-    multi-device pipeline stages (ROADMAP item 13b) and sequence
-    parallelism (item 14) are ported; the restriction is RECORDED in the
-    result (``excluded_kinds``) and its report, never silent.
+    ``include_pipeline`` must stay False until the multi-device pipeline
+    stages (ROADMAP item 13b) are ported. What the search leaves out is
+    RECORDED in the result (``excluded_kinds``) and its report, never
+    silent.
 
     The whole search runs under an observatory capture: every enumerated
     proposal lands in the winner's ``best["report"]``
@@ -136,10 +218,7 @@ def explore(
         raise NotImplementedError(
             "pipeline candidates need more than one device in a stage, "
             "which the pipeline runtime does not run yet (ROADMAP item 13b)")
-    if include_seq:
-        raise NotImplementedError(
-            "sequence-parallel candidates come with ring/Ulysses "
-            "attention, ROADMAP item 14")
+    from tepdist_tpu_torch.core.tree import tree_leaves
     from tepdist_tpu_torch.graph.fx_graph import trace_graph
     from tepdist_tpu_torch.train import value_and_grad
 
@@ -156,7 +235,17 @@ def explore(
             candidates = spmd_candidates(graph, n_devices)
         if col is not None:
             col.phase("spmd", time.perf_counter() - t0)
-        excluded: List[str] = ["seq", "pipeline"]
+        excluded: List[str] = []
+        if include_seq:
+            t0 = time.perf_counter()
+            batch_rows = tree_leaves(example_batch)[0].shape[0]
+            with span("explore:seq", cat="planner"):
+                candidates += seq_candidates(graph, n_devices, batch_rows)
+            if col is not None:
+                col.phase("seq", time.perf_counter() - t0)
+        else:
+            excluded.append("seq")
+        excluded.append("pipeline")
         if not candidates:
             if col is not None:
                 report = observatory.build_report(

@@ -46,6 +46,14 @@ CHIPS: Dict[str, ChipSpec] = {
 }
 
 
+# The links a send to a ring neighbour crosses, by chip: on an NVSwitch
+# node every link of the card reaches every peer (the data sheet's 18 x 25
+# GB/s each way), where a torus neighbour (the reference's chips, the
+# ``cpu`` target) is one link away, the default. It sits beside ChipSpec,
+# whose fields stay the reference's TpuChipSpec's.
+NEIGHBOUR_LINKS: Dict[str, int] = {"h100": 18}
+
+
 def chip_spec(generation: str | None = None) -> ChipSpec:
     """The chip named by ``generation`` or the TPU_GENERATION knob (the
     reference's name; ``h100`` by default in the port), with the
@@ -170,13 +178,16 @@ class PerfUtils:
     @classmethod
     def ppermute_cost(cls, bytes_: float, spec: ChipSpec | None = None,
                       over_dcn: bool = False) -> float:
-        """One neighbor hop (ring attention / pipeline send-recv)."""
+        """One neighbor hop (ring attention / pipeline send-recv) over the
+        chip's ``NEIGHBOUR_LINKS``: one link on a torus, every link of the
+        card through a switch."""
         prof = _calib()
         if prof is not None and prof.transfer_bytes_per_s > 0:
             return ALPHA_S + bytes_ / prof.transfer_bytes_per_s
         spec = spec or chip_spec()
-        return ALPHA_S + bytes_ / (spec.ici_gbps_per_link * GB if not over_dcn
-                                   else spec.dcn_gbps * GB)
+        links = NEIGHBOUR_LINKS.get(spec.name, 1)
+        return ALPHA_S + bytes_ / (links * spec.ici_gbps_per_link * GB
+                                   if not over_dcn else spec.dcn_gbps * GB)
 
     @classmethod
     def compute_time(cls, flops: float, spec: ChipSpec | None = None,

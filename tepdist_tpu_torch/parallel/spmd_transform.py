@@ -33,7 +33,7 @@ import torch.fx as fx
 
 from tepdist_tpu_torch.core.dist_spec import DimStrategy, TensorStrategy
 from tepdist_tpu_torch.core.mesh import MeshTopology
-from tepdist_tpu_torch.graph.fx_graph import FxGraph, var_shape
+from tepdist_tpu_torch.graph.fx_graph import FxGraph, op_name, var_shape
 from tepdist_tpu_torch.parallel.cost_spmd_strategy import GraphStrategy
 
 Var = fx.Node
@@ -105,8 +105,6 @@ class ShardingPlan:
     # outvar idx -> invar idx threading (reference input_output_alias_map_);
     # these invars are safe to donate — the step replaces them.
     state_alias: Optional[Dict[int, int]] = None
-    # (axis_name, motifs) pairs from seq-axis strategies (ROADMAP item 14).
-    motifs: Optional[List] = None
 
     def mesh(self, device_type: str = "cuda"):
         return self.topology.to_device_mesh(device_type)
@@ -150,11 +148,18 @@ class SpmdTransform:
         """``state_alias``: outvar index -> invar index for training-state
         threading (reference input_output_alias_map_): the aliased output is
         forced to its input's placements so step N's outputs feed step N+1
-        without resharding."""
+        without resharding.
+
+        A ``seq`` axis is lowered from the graph's sequence-op nodes
+        (``tepdist::seq_attn`` / ``seq_attn_bwd``); a strategy of closed
+        attention motifs (``attention_motif.build_seq_strategy``) is for
+        pricing, and its graph is lowered once rewritten
+        (``auto_parallel`` rewrites it)."""
         if any(getattr(gs, "motifs", None) for gs in strategies):
-            raise NotImplementedError(
-                "seq-axis attention motifs are lowered with sequence "
-                "parallelism (ROADMAP item 14)")
+            raise ValueError(
+                "a seq strategy of closed attention motifs is lowered from "
+                "the rewritten graph: rewrite the motifs into sequence ops "
+                "(attention_motif.build_ring_rewritten) and plan that graph")
         combined = combine_axis_strategies(self.graph, strategies)
         sizes = {gs.axis_name: gs.num_splits for gs in strategies}
         order = _axis_order(self.topology)
@@ -213,13 +218,12 @@ class SpmdTransform:
         as ``graph.invars``), it returns flat DTensor outputs with
         ``plan.out_specs`` placements — runtime layers wrap trees around
         it."""
-        if plan.motifs:
-            raise NotImplementedError(
-                "seq-axis attention motifs are lowered with sequence "
-                "parallelism (ROADMAP item 14)")
         register_flash_sharding()
         mesh = mesh if mesh is not None else plan.mesh()
         return SpmdExecutable(self.graph.gm, plan, mesh, plan.constraints)
+
+
+_SEQ_OPS = ("seq_attn", "seq_attn_bwd")
 
 
 class _DTensorInterpreter(fx.Interpreter):
@@ -227,7 +231,15 @@ class _DTensorInterpreter(fx.Interpreter):
     that is emptied as they are read, factory ops' plain outputs become
     replicated DTensors, constants are distributed as replicated, and a
     constrained value is redistributed to its planned placements as it is
-    written."""
+    written.
+
+    Sequence parallelism runs here, on local blocks: a node of the
+    ``tepdist::seq_attn`` / ``seq_attn_bwd`` ops (attention rewritten
+    before capture) takes its operands' blocks split on the sequence dim
+    over the ``seq`` mesh dimension (a value that arrives replicated there
+    is sliced, not gathered), runs the ring or Ulysses over that
+    dimension's process group, and gives back DTensors of the same
+    placements."""
 
     def __init__(self, exe: "SpmdExecutable", inputs: List[Any],
                  comm_mode=None):
@@ -253,6 +265,7 @@ class _DTensorInterpreter(fx.Interpreter):
 
     def call_function(self, target, args, kwargs):
         before = _gathers(self.comm_mode) if self.comm_mode else 0
+        args = reduce_seq_partial_factors(self.exe.mesh, target, args)
         try:
             out = super().call_function(target, args, kwargs)
         except RuntimeError:
@@ -277,11 +290,110 @@ class _DTensorInterpreter(fx.Interpreter):
 
     def run_node(self, n: fx.Node):
         self.current_node = n.name
+        if n.op == "call_function" and op_name(n.target) in _SEQ_OPS:
+            return self._seq_op(n)
         val = super().run_node(n)
         spec = self.exe.constraints.get(n)
         if spec is not None:
             val = val.redistribute(self.exe.mesh, spec)
         return val
+
+    # -- sequence parallelism ----------------------------------------------
+    def _blocks(self, tensors, seq_dim: int):
+        """(local blocks, placements) of DTensor operands split on
+        ``seq_dim`` over the ``seq`` mesh dimension, dim 0 splits kept, any
+        other mesh dimension replicated. An all-gather this takes is an
+        involuntary remat of the node."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        seq = self.exe.seq_mesh_dim()
+        before = _gathers(self.comm_mode) if self.comm_mode else 0
+        out, placements = [], None
+        for t in tensors:
+            if t is None:
+                out.append(None)
+                continue
+            # An LSE keeps q's dims but D, so T sits at seq_dim there too.
+            t = self.exe.as_dtensor(t)
+            want = [Shard(seq_dim) if i == seq else
+                    (p if p.is_shard(0) else Replicate())
+                    for i, p in enumerate(t.placements)]
+            if list(t.placements) != want:
+                t = t.redistribute(self.exe.mesh, want)
+            if placements is None:
+                placements = want
+            out.append(t.to_local())
+        if self.comm_mode is not None and _gathers(self.comm_mode) > before:
+            self.remats.append(self.current_node)
+        return out, placements
+
+    def _wrap(self, local, placements):
+        from torch.distributed.tensor import DTensor
+
+        return DTensor.from_local(local, self.exe.mesh, placements,
+                                  run_check=False)
+
+    def _seq_op(self, n: fx.Node):
+        from tepdist_tpu_torch.ops.ring_attention import (
+            seq_attention_blocks, seq_attention_blocks_backward)
+
+        args, _ = self.fetch_args_kwargs_from_env(n)
+        if op_name(n.target) == "seq_attn":
+            q, k, v, causal, scale, n_head, impl, inner, seq_size = args
+            (ql, kl, vl), pl = self._blocks((q, k, v), q.dim() - 2)
+            o, lse = seq_attention_blocks(
+                ql, kl, vl, self.exe.seq_transport(seq_size), causal, scale,
+                n_head, impl, inner)
+            return self._wrap(o, pl), self._wrap(lse, pl)
+        (q, k, v, o, lse, do, dlse, causal, scale, n_head, impl, inner,
+         seq_size) = args
+        blocks, pl = self._blocks((q, k, v, o, lse, do, dlse), q.dim() - 2)
+        grads = seq_attention_blocks_backward(
+            *blocks, self.exe.seq_transport(seq_size), causal, scale,
+            n_head, impl, inner)
+        return tuple(self._wrap(g, pl) for g in grads)
+
+
+def _seq_mesh_dim(mesh) -> Optional[int]:
+    """The index of ``mesh``'s dimension named ``seq``, or None."""
+    names = mesh.mesh_dim_names or ()
+    return names.index("seq") if "seq" in names else None
+
+
+def reduce_seq_partial_factors(mesh, target, args):
+    """``args`` of a product (``aten.mul.Tensor``) with every operand that
+    is a partial sum over the ``seq`` mesh dimension reduced first, when
+    two or more are.
+
+    DTensor reduces one factor of a product of partial sums and keeps the
+    product partial: exact in exact arithmetic, but under a sequence split
+    a gradient can be zero in exact arithmetic while its partial sums are
+    not (a key bias's: softmax ignores a shift of a row's scores), and
+    the partial products of its square then sum to a value that may round
+    below zero, where Adam's sqrt gives NaN. Reducing both factors costs
+    the one all-reduce of the gradient that DTensor would take anyway.
+    Other mesh dimensions keep DTensor's rule."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if target is not torch.ops.aten.mul.Tensor:
+        return args
+    seq = _seq_mesh_dim(mesh)
+    if seq is None:
+        return args
+    partial = [i for i, a in enumerate(args) if isinstance(a, DTensor)
+               and a.placements[seq].is_partial()]
+    if len(partial) < 2:
+        return args
+    args = list(args)
+    reduced = {}                       # x * x: one all-reduce of x
+    for i in partial:
+        a = args[i]
+        if id(a) not in reduced:
+            want = list(a.placements)
+            want[seq] = Replicate()
+            reduced[id(a)] = a.redistribute(mesh, want)
+        args[i] = reduced[id(a)]
+    return tuple(args)
 
 
 def _gathers(comm_mode) -> int:
@@ -315,6 +427,29 @@ class SpmdExecutable:
         self.mesh = mesh
         self.constraints = constraints
         self._replicate = None
+        self._seq_transport = None
+
+    # -- sequence parallelism ----------------------------------------------
+    def seq_mesh_dim(self) -> Optional[int]:
+        """The mesh dimension named ``seq``, or None."""
+        return _seq_mesh_dim(self.mesh)
+
+    def seq_transport(self, seq_size: Optional[int] = None):
+        """The ring of the sequence ops: the ``seq`` mesh dimension's
+        process group (of ``seq_size`` ranks, when given)."""
+        from tepdist_tpu_torch.ops.seq_comm import GroupTransport
+
+        seq = self.seq_mesh_dim()
+        if seq is None:
+            raise ValueError("sequence attention needs a 'seq' mesh "
+                             "dimension")
+        if self._seq_transport is None:
+            self._seq_transport = GroupTransport(self.mesh.get_group(seq))
+        t = self._seq_transport
+        if seq_size is not None and seq_size != t.size:
+            raise ValueError(f"a sequence op for {seq_size} ranks on a seq "
+                             f"mesh dimension of {t.size}")
+        return t
 
     # -- value conversion ------------------------------------------------
     def _rep(self):

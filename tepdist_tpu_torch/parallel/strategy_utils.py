@@ -86,8 +86,13 @@ GENERATIVE = {"full", "zeros", "ones", "empty", "arange", "scalar_tensor",
 OPAQUE = {"sort", "topk", "cumsum", "cumprod", "cummax", "cummin"}
 
 # The flash-attention ops: [B*H, T, ...] operands and outputs, dim 0
-# mapped through (``n_head``, their last argument, is H).
-FLASH = {"flash_fwd", "flash_dq", "flash_dkv"}
+# mapped through (``n_head``, their last argument, is H). The sequence
+# ops (``tepdist::seq_attn``, ``seq_attn_bwd``; ``ops/ring_attention.py``)
+# take [B*H, T, D] or [B, H, T, D] and map dim 0 the same way; their
+# sequence dim is the ``seq`` axis's, seeded by
+# ``attention_motif.build_anchored_seq_strategy``.
+FLASH = {"flash_fwd", "flash_dq", "flash_dkv", "seq_attn", "seq_attn_bwd"}
+_N_HEAD_ARG = {"seq_attn": 5, "seq_attn_bwd": 9}
 
 # Ops that apply along one dim and map the others through.
 ROWWISE = {"_softmax", "_log_softmax"}
@@ -269,9 +274,12 @@ def dim_maps(node: GraphNode) -> Optional[List[Dict[int, int]]]:
 
 def flash_splits(node: GraphNode, num_splits: int) -> bool:
     """Whether a flash op's dim 0 splits ``num_splits`` ways at whole
-    batch rows (multiples of its ``n_head``)."""
+    batch rows (multiples of its ``n_head`` where dim 0 is B*H)."""
     rows = _out_shape(node)[0]
-    return rows % (num_splits * int(node.args[-1])) == 0
+    per_row = int(node.args[_N_HEAD_ARG.get(node.prim, -1)])
+    if len(_out_shape(node)) == 4:
+        per_row = 1                  # [B, H, T, D]: dim 0 is the batch
+    return rows % (num_splits * per_row) == 0
 
 
 def _reshape_map(src: Tuple[int, ...], dst: Tuple[int, ...]) -> Dict[int, int]:

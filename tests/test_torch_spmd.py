@@ -328,25 +328,26 @@ def test_transformer_plan_splits_the_batch(family):
 # --------------------------------------------------------------------------
 
 def test_explore_records_the_excluded_kinds():
-    """The port's explorer searches the SPMD kinds only and says so; the
-    pipeline and sequence kinds name their ROADMAP items."""
+    """The port's explorer searches the SPMD and sequence kinds and says
+    what it leaves out: the pipeline kind, which names its ROADMAP item.
+    A seq axis on a graph with no attention raises the reference's
+    guidance error."""
     params, x, y = _np_mlp()
     tp = {k: torch.tensor(v) for k, v in params.items()}
     best = texp.explore(_torch_mlp_loss, tp, torch.tensor(x),
                         torch.tensor(y), n_devices=8)
     assert best["kind"] == "spmd"
-    assert best["excluded_kinds"] == ["seq", "pipeline"]
-    assert best["report"]["excluded_kinds"] == ["seq", "pipeline"]
+    assert best["excluded_kinds"] == ["pipeline"]
+    assert best["report"]["excluded_kinds"] == ["pipeline"]
     assert {r["config"] for r in texp.candidate_summary(best["candidates"])
             } >= {"MeshTopology(data=8)", "MeshTopology(model=8)"}
     with pytest.raises(NotImplementedError, match="item 13"):
         texp.explore(_torch_mlp_loss, tp, torch.tensor(x), torch.tensor(y),
                      n_devices=8, include_pipeline=True)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        texp.explore(_torch_mlp_loss, tp, torch.tensor(x), torch.tensor(y),
-                     n_devices=8, include_seq=True)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="no rewritable attention motif"):
         tap.plan_axes(_graphs("mlp")[1], tmesh.MeshTopology([("seq", 2)]))
+    with pytest.raises(ValueError, match="no rewritable attention motif"):
+        jap.plan_axes(_graphs("mlp")[0], jmesh.MeshTopology([("seq", 2)]))
 
 
 @pytest.mark.parametrize("row,n", [
