@@ -64,6 +64,20 @@ calls (``plan_training`` + ``plan.step``, ``plan.save``/``restore``,
    seconds, peak memory, the seconds in each kind of task body of a
    traced seventh step and a profiled eighth; then each kernel against its
    plain version at the pipeline's micro batch [6*25, 1024, 64];
+5e2. pipeline_dp: the same model, seed and batches as 2 stages x 2
+   intra-stage data replicas over [cuda:0] * 4 (``plan_training(
+   num_stages=2, num_micro_batches=8, devices=[cuda:0] * 4)``) for 6
+   steps, then its captured program with ZeRO in a new
+   ``PipelineExecutable`` for 3: losses within
+   PIPELINE_LOSS_RTOL of the pipeline phase's (ZeRO: of the plain run's),
+   launches 2LMR / LMR / LMR a step (1536 / 768 / 768), the predicted
+   makespan and bubble, step seconds, peak memory, a profiled step; then
+   each kernel at a replica's micro batch [3*25, 1024, 64];
+5e3. collective: GPT-2 1.5B's 48 blocks as 4 stages of the collective
+   pipeline over [cuda:0] * 4 (``gpt2.pipelined_loss_fn``, batch 12 in 4
+   micro batches of 3 rows): the loss against ``loss_fn_stacked`` on the
+   same weights and batch and each gradient leaf against the eager
+   one's (the parity phase's bounds), launches 2LM / LM / LM;
 5f. seq_kernels: attention alone at Llama 1B's heads (16 after the GQA
    repeat, head_dim 128), bf16 causal, 1 x 16384 tokens, split over
    [cuda:0] * 4 in the one-process form: the ring and Ulysses (flash
@@ -750,9 +764,10 @@ def phase_plan():
 # search prices every node of the captured step once per mesh axis and
 # candidate, and at 48 layers the exploration alone took 792 s on the
 # H100 machine's host (PERF.md section 6), two thirds of this script's
-# 1200 s limit; at 4 layers it takes about 90 s.
-SPMD_PLAN_DEVICES, SPMD_PLAN_LAYERS = 8, 4
-SPMD_PLAN_CUT = ("depth cut from 48 to 4 layers: at 48 the exploration "
+# 1200 s limit. At 4 layers, with the pipeline kind priced too, it took
+# 122.6 s; 2 layers make room for the pipeline_dp and collective phases.
+SPMD_PLAN_DEVICES, SPMD_PLAN_LAYERS = 8, 2
+SPMD_PLAN_CUT = ("depth cut from 48 to 2 layers: at 48 the exploration "
                  "alone took 792 s of the run's 1200 s limit")
 # spmd_step phase: the lowered step against the plan phase's eager
 # losses (same seed and batches). The capture runs the models' GELU as its
@@ -805,12 +820,31 @@ def phase_spmd_plan():
     phases = (best.get("report") or {}).get("phases", {})
     per_topology = {}
     for c in best["candidates"]:
-        key = str(c["topology"])
+        key = (str(c["topology"]) if "topology" in c
+               else f"pipeline S={c['num_stages']}")
         per_topology[key] = per_topology.get(key, 0) + 1
     status = {str(c["topology"]): [g.ilp_status for g in c["strategies"]]
               for c in best["candidates"]
               if not c.get("comm_dtype") and not c.get("zero")
               and "strategies" in c}
+    # The pipeline stage cuts (ROADMAP item 13b), priced by the task
+    # scheduler's simulation: the best of each (S, M, tp, placement).
+    pipe_best = {}
+    for c in best["candidates"]:
+        if c["kind"] != "pipeline":
+            continue
+        key = (f"S={c['num_stages']} M={c['num_micro_batches']} "
+               f"tp={c['intra_tp']} {c['placement']}")
+        if (key not in pipe_best or c["cost"].key()
+                < pipe_best[key]["cost"].key()):
+            pipe_best[key] = c
+    pipelines = [{"config": k, "predicted_step_seconds":
+                  c["cost"].total_duration,
+                  "bubble_ratio": c["cost"].bubble_ratio,
+                  "memory_feasible": c["cost"].memory_feasible,
+                  "modifiers": (c.get("comm_dtype", "")
+                                + ("@zero" if c.get("zero") else ""))}
+                 for k, c in sorted(pipe_best.items())]
     # The data x seq candidates are priced by hand (ring or Ulysses comm
     # beside the data axis's), with no strategies of their own.
     seq = [{"topology": str(c["topology"]), "impl": c["seq_impl"],
@@ -838,10 +872,19 @@ def phase_spmd_plan():
           "capture_seconds": phases.get("trace_ms", 0.0) / 1e3,
           "search_seconds": phases.get("spmd_ms", 0.0) / 1e3,
           "seq_search_seconds": phases.get("seq_ms", 0.0) / 1e3,
+          "pipeline_search_seconds": phases.get("pipeline_ms", 0.0) / 1e3,
           "seq_candidates": seq,
+          "pipeline_candidates": pipelines,
+          # Stage x TP cuts are not proposed on a card (ROADMAP C8).
+          "stage_tp_pruned": sorted(
+              p["config"] for p in (best.get("report") or {}).get(
+                  "prunes", []) if "C8" in p.get("message", "")),
           "candidates_per_topology": per_topology,
           "excluded_kinds": best.get("excluded_kinds"),
-          "winner": {"topology": str(best["topology"]),
+          "winner": {"kind": best["kind"],
+                     "topology": str(best.get("topology")),
+                     "num_stages": best.get("num_stages"),
+                     "intra_tp": best.get("intra_tp"),
                      "comm_dtype": best.get("comm_dtype", ""),
                      "zero": bool(best.get("zero", False))},
           "predicted_step_seconds": cost.total_duration,
@@ -850,9 +893,9 @@ def phase_spmd_plan():
           "solver_status": status,
           "data8_token_strategy_unannotated": token_unannotated,
           "ranked": candidate_summary(best["candidates"], best)[:6]})
-    if best.get("excluded_kinds") != ["pipeline"]:
-        raise SystemExit("chip_smoke: exploration did not record the "
-                         "kinds it left out")
+    if best.get("excluded_kinds") != [] or not pipelines:
+        raise SystemExit("chip_smoke: exploration did not search (and "
+                         "price) every kind")
 
     # The whole GA step on data=8, the token input annotated as split
     # over data (the batch annotation a data-parallel user gives): the
@@ -1153,6 +1196,217 @@ def phase_pipeline(eager_losses, eager_micro: int):
         raise SystemExit(f"chip_smoke: launches {per_step} != {want}")
     _profile_step("GPT-2 1.5B pipeline", lambda: plan.step(tokens), median)
     del plan, exe
+    torch.cuda.empty_cache()
+    return launches, losses
+
+
+# Pipeline stages over several devices (ROADMAP item 13b), one card in the
+# one-process form: the pipeline phase's model, seed and batches as 2
+# stages x 2 intra-stage data replicas over [cuda:0] * 4, M = 8 (3 rows a
+# replica a micro batch), plain for STEPS steps, then the same program
+# with ZeRO for PIPE_DP_ZERO_STEPS (held to the plain run's first ones).
+PIPE_DP_STAGES, PIPE_DP_REPLICAS, PIPE_DP_ZERO_STEPS = 2, 2, 3
+
+
+def phase_pipeline_dp(pipe_losses):
+    """GPT-2 1.5B at full width and depth through ``plan_training(
+    num_stages=2, num_micro_batches=8, devices=[cuda:0] * 4)``: each stage
+    runs as two intra-stage data replicas (the stage modules captured at a
+    replica's 3 rows, the partial gradients summed once at APPLY), then
+    the same captured program with ZeRO (each replica updates half of
+    every padded flat optimizer leaf: reduce-scatter, update, all-gather)
+    in a new ``PipelineExecutable``. 6 steps plain, 3 with ZeRO: losses
+    within PIPELINE_LOSS_RTOL of the pipeline phase's, ZeRO's of the plain
+    run's, launches 2LMR / LMR / LMR a step; the predicted makespan and
+    bubble (4 devices, ``h100`` entry), step seconds, peak memory, and a
+    profiled step of the plain run. Returns the plain run's launches (the
+    path's own, counted from 0)."""
+    import torch
+
+    from tepdist_tpu_torch import train
+    from tepdist_tpu_torch.models import gpt2
+    from tepdist_tpu_torch.ops import flash_attention as fa
+    from tepdist_tpu_torch.optim import adamw_bf16
+    from tepdist_tpu_torch.parallel.performance_utils import chip_spec
+    from tepdist_tpu_torch.runtime.executor import PipelineExecutable
+
+    torch.cuda.empty_cache()
+    cfg = _config(48)
+    L, S, R, M = cfg.n_layer, PIPE_DP_STAGES, PIPE_DP_REPLICAS, PIPE_MICRO
+    devices = [torch.device("cuda", 0)] * (S * R)
+    tokens = gpt2.fake_batch(cfg, PLAN_BATCH, SEQ, seed=0, device="cuda")
+    want = {"flash_fwd": 2 * L * M * R, "flash_dq": L * M * R,
+            "flash_dkv": L * M * R}
+
+    def loss_fn(p, t):
+        return gpt2.loss_fn(p, t, cfg)
+
+    runs, plain_launches, prog = {}, None, None
+    for zero in (False, True):
+        params = gpt2.init_params(cfg, seed=0, device="cuda")
+        t0 = time.perf_counter()
+        if zero:
+            # The plain run's captured program and stage cut, with ZeRO.
+            prog.zero = True
+            exe = PipelineExecutable(prog, devices=devices,
+                                     optimizer=adamw_bf16(1e-4))
+            exe.load_variables(params)
+            step = exe.step
+        else:
+            plan = train.plan_training(
+                loss_fn, adamw_bf16(1e-4), params, tokens, num_stages=S,
+                num_micro_batches=M, devices=devices)
+            exe, step = plan.executable, plan.step
+        setup_s = time.perf_counter() - t0
+        del params
+        torch.cuda.reset_peak_memory_stats()
+        losses, seconds, per_step = [], [], []
+        fa.reset_launch_counts()
+        for _ in range(PIPE_DP_ZERO_STEPS if zero else STEPS):
+            before = dict(fa.launch_counts)
+            t0 = time.perf_counter()
+            losses.append(step(tokens))     # returns after a device sync
+            seconds.append(time.perf_counter() - t0)
+            per_step.append({n: fa.launch_counts[n] - before[n]
+                             for n in want})
+        if not zero:
+            plain_launches = dict(fa.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        steady = seconds[1:]
+        median = sorted(steady)[len(steady) // 2]
+        sched, prog = exe.schedule, exe.prog
+        ref = runs["plain"]["losses"] if zero else pipe_losses
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+        runs["zero" if zero else "plain"] = {"losses": losses, "rel": rel}
+        emit({"phase": "pipeline_dp", "zero": zero, "model": "GPT-2 1.5B",
+              "n_layer": L, "batch": PLAN_BATCH, "seq": SEQ,
+              "num_stages": S, "replicas_per_stage": R, "micro_batches": M,
+              "rows_per_replica": PLAN_BATCH // M // R,
+              "devices": "[cuda:0] * 4 (2 stages x 2 replicas share the "
+                         "card)",
+              "entry": "PipelineExecutable(the plain run's program, "
+                       "zero)" if zero else "plan_training",
+              "setup_seconds": setup_s,
+              "capture_seconds": prog.trace_seconds,
+              "stage_ilp": {"status": prog.sketch.solver_status,
+                            "seconds": prog.sketch.solve_seconds},
+              "flops_share": [f / sum(prog.stage_flops())
+                              for f in prog.stage_flops()],
+              "schedule": {"policy": sched.policy,
+                           "chip": chip_spec().name,
+                           "predicted_makespan_s": sched.makespan,
+                           "predicted_bubble_ratio": sched.bubble_ratio,
+                           "note": "predicted for 4 devices; on one card "
+                                   "the stages and replicas run one after "
+                                   "another"},
+              "losses": losses,
+              "reference": "plain run" if zero else "pipeline phase",
+              "reference_losses": list(ref), "loss_rel_diff": rel,
+              "loss_rtol": PIPELINE_LOSS_RTOL, "step_seconds": seconds,
+              "tokens_per_s": PLAN_BATCH * SEQ * len(steady) / sum(steady),
+              "max_memory_allocated_bytes": peak,
+              "launches_per_step": per_step, "expected_per_step": want})
+        if not all(math.isfinite(x) for x in losses):
+            raise SystemExit(f"chip_smoke: non-finite loss {losses}")
+        if max(rel) > PIPELINE_LOSS_RTOL:
+            raise SystemExit(f"chip_smoke: pipeline_dp losses {losses} "
+                             f"differ from {ref}")
+        if any(st != want for st in per_step):
+            raise SystemExit(f"chip_smoke: launches {per_step} != {want}")
+        if not zero:
+            _profile_step("GPT-2 1.5B pipeline_dp", lambda: step(tokens),
+                          median)
+        del exe, step
+        if not zero:
+            del plan
+        torch.cuda.empty_cache()
+    return plain_launches
+
+
+# The collective (single-program) pipeline, device form: GPT-2 1.5B's
+# 48 blocks as 4 stages of 12 over [cuda:0] * 4, batch 12 x 1024 in 4
+# micro batches of 3 rows (the pipeline_dp phase's kernel shape).
+COLL_STAGES, COLL_BATCH, COLL_MICRO = 4, 12, 4
+
+
+def phase_collective():
+    """``gpt2.pipelined_loss_fn`` (the GPipe wavefront over S + M - 1
+    ticks, the hop a ``.to()``) on the stacked blocks of
+    ``shard_stacked_for_stages``: its loss against ``loss_fn_stacked`` on
+    the same weights and batch (PARITY_LOSS_RTOL) and each gradient leaf
+    against the eager one's (PARITY_GRAD_RL2, worst leaf), the kernels'
+    launches (2LM / LM / LM under full remat) and both seconds. Returns
+    the launches (the path's own, counted from 0)."""
+    import torch
+
+    from tepdist_tpu_torch.models import gpt2
+    from tepdist_tpu_torch.ops import flash_attention as fa
+
+    torch.cuda.empty_cache()
+    cfg = _config(48)
+    L, S, M = cfg.n_layer, COLL_STAGES, COLL_MICRO
+    devices = [torch.device("cuda", 0)] * S
+    params = gpt2.init_params(cfg, seed=0, device="cuda")
+    tokens = gpt2.fake_batch(cfg, COLL_BATCH, SEQ, seed=4, device="cuda")
+    embed, stacked = gpt2.shard_stacked_for_stages(params, cfg, devices)
+    del params
+    names = sorted(embed) + sorted(stacked)
+    leaves = [t.detach().requires_grad_() for t in
+              [embed[k] for k in sorted(embed)]
+              + [stacked[k] for k in sorted(stacked)]]
+    n_e = len(embed)
+    e = dict(zip(sorted(embed), leaves[:n_e]))
+    b = dict(zip(sorted(stacked), leaves[n_e:]))
+    want = {"flash_fwd": 2 * L * M, "flash_dq": L * M, "flash_dkv": L * M}
+
+    eager = dict(e)
+    eager["blocks"] = {k: v.reshape((L,) + tuple(v.shape[2:]))
+                       for k, v in b.items()}
+
+    def run(pipelined):
+        """(loss, grads, seconds) of one forward and backward."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = (gpt2.pipelined_loss_fn(e, b, tokens, cfg, devices, M)
+                if pipelined else gpt2.loss_fn_stacked(eager, tokens, cfg))
+        grads = torch.autograd.grad(loss, leaves)
+        loss = loss.item()
+        return loss, grads, time.perf_counter() - t0
+
+    fa.reset_launch_counts()
+    loss_c, grads_c, first_c = run(True)
+    launches = dict(fa.launch_counts)
+    loss_e, grads_e, first_e = run(False)
+    rel = {n: ((a.float() - g.float()).norm()
+               / g.float().norm().clamp_min(1e-30)).item()
+           for n, a, g in zip(names, grads_c, grads_e)}
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(loss_c - loss_e) / abs(loss_e)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads_c)
+    del grads_c, grads_e
+    # Both again, warm: the first calls allocate their memory.
+    coll_s, eager_s = run(True)[2], run(False)[2]
+    emit({"phase": "collective", "model": "GPT-2 1.5B", "n_layer": L,
+          "batch": COLL_BATCH, "seq": SEQ, "num_stages": S,
+          "micro_batches": M, "rows_per_micro_batch": COLL_BATCH // M,
+          "ticks": S + M - 1,
+          "devices": "[cuda:0] * 4 (the device form: a hop is a .to())",
+          "loss_pipelined": loss_c, "loss_eager": loss_e,
+          "loss_rel_err": loss_rel, "loss_rtol": PARITY_LOSS_RTOL,
+          "grad_worst_leaf": worst, "grad_max_rel_l2": rel[worst],
+          "grad_rel_l2_tol": PARITY_GRAD_RL2,
+          "launches": launches, "expected": want,
+          "pipelined_step_seconds": coll_s, "eager_step_seconds": eager_s,
+          "first_call_seconds": {"pipelined": first_c, "eager": first_e}})
+    if not (finite and math.isfinite(loss_c)
+            and loss_rel <= PARITY_LOSS_RTOL
+            and rel[worst] <= PARITY_GRAD_RL2):
+        raise SystemExit("chip_smoke: the collective pipeline disagrees "
+                         "with the eager loss or gradients")
+    if launches != want:
+        raise SystemExit(f"chip_smoke: collective launches {launches} != "
+                         f"{want}")
+    del leaves, e, b, eager, embed, stacked
     torch.cuda.empty_cache()
     return launches
 
@@ -2463,26 +2717,54 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     open(LOG_PATH, "w").close()
 
+    # Seconds between phase boundaries (a timing line before the kernels
+    # line), so a run's time can be laid out by phase.
+    seconds, clock = {}, [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        seconds[name] = now - clock[0]
+        clock[0] = now
+
     phase_device()
     phase_build()
+    mark("build")
     phase_telemetry()
     gpt2_case, llama_case, remat_case = phase_kernels()
+    mark("kernels")
     phase_parity()
+    mark("parity")
     gpt2_launches, slice_losses, slice_seconds = phase_slice()
+    mark("slice")
     plan_launches, plan_mb, plan_losses = phase_plan()
     torch.cuda.empty_cache()
     # The plan path's kernels at the micro batch it chose.
     plan_case = _checked_case("plan_path", dict(
         B=plan_mb, H=25, T=SEQ, D=64, dtype=torch.bfloat16, causal=True),
         seed=200, time_it=True)
+    mark("plan")
     phase_spmd_plan()
+    mark("spmd_plan")
     spmd_launches = phase_spmd_step(PLAN_BATCH // plan_mb, plan_losses)
-    pipe_launches = phase_pipeline(plan_losses, PLAN_BATCH // plan_mb)
+    mark("spmd_step")
+    pipe_launches, pipe_losses = phase_pipeline(plan_losses,
+                                                PLAN_BATCH // plan_mb)
     # The pipeline path's kernels at its micro batch.
     pipe_mb = PLAN_BATCH // PIPE_MICRO
     pipe_case = _checked_case("pipeline_path", dict(
         B=pipe_mb, H=25, T=SEQ, D=64, dtype=torch.bfloat16, causal=True),
         seed=300, time_it=True)
+    mark("pipeline")
+    # Stages over several devices (one card): intra-stage replicas, ZeRO,
+    # the collective pipeline; the kernels at a replica's micro batch.
+    pipe_dp_launches = phase_pipeline_dp(pipe_losses)
+    mark("pipeline_dp")
+    coll_launches = phase_collective()
+    dp_mb = PLAN_BATCH // PIPE_MICRO // PIPE_DP_REPLICAS
+    pipe_dp_case = _checked_case("pipeline_dp_path", dict(
+        B=dp_mb, H=25, T=SEQ, D=64, dtype=torch.bfloat16, causal=True),
+        seed=600, time_it=True)
+    mark("collective")
     # Sequence parallelism: the ring and Ulysses at long context, the
     # kernels at both hop shapes, GPT-2 1.5B through the ring, the seq
     # axis planned at Llama 1B width.
@@ -2501,6 +2783,7 @@ def main() -> int:
             dtype=torch.bfloat16, causal=causal), seed=502 + causal,
         time_it=True) for causal in (True, False)}
     phase_seq_plan()
+    mark("seq")
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         llama_launches, save = phase_llama(workdir)
@@ -2508,10 +2791,17 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     del save
+    mark("llama_checkpoint")
     remat_launches = phase_remat()
+    mark("remat")
     phase_sampling()
+    mark("sampling")
     phase_models()
+    mark("models")
     phase_serving()
+    mark("serving")
+    emit({"phase": "timing", "phase_seconds": seconds,
+          "total_seconds": sum(seconds.values())})
     rows = []
     for shape, case, launches in (
             ("[4*25, 1024, 64] bf16 causal (GPT-2 1.5B)", gpt2_case,
@@ -2527,7 +2817,13 @@ def main() -> int:
              spmd_launches),
             (f"[{pipe_mb}*25, 1024, 64] bf16 causal (GPT-2 1.5B pipeline "
              f"phase: 4 stages, M = {PIPE_MICRO})", pipe_case,
-             pipe_launches)):
+             pipe_launches),
+            (f"[{dp_mb}*25, 1024, 64] bf16 causal (GPT-2 1.5B pipeline_dp "
+             f"phase: 2 stages x 2 replicas, M = {PIPE_MICRO})",
+             pipe_dp_case, pipe_dp_launches),
+            (f"[{COLL_BATCH // COLL_MICRO}*25, 1024, 64] bf16 causal (GPT-2 "
+             f"1.5B collective phase: 4 stages, M = {COLL_MICRO})",
+             pipe_dp_case, coll_launches)):
         for name, (source, replaces) in KERNELS.items():
             r = case[name]
             rows.append({"name": name, "shape": shape, "route": "cuda",

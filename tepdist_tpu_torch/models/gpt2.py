@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -329,6 +329,137 @@ def forward_stacked(params, tokens, cfg: GPT2Config, attn_impl=None):
 def loss_fn_stacked(params, tokens, cfg: GPT2Config, attn_impl=None):
     x = hidden_states_stacked(params, tokens[:, :-1], cfg, attn_impl)
     return _ce_from_hidden(x, params["wte"], tokens[:, 1:], cfg)
+
+
+# --------------------------------------------------------------------------
+# Stacked-stage form for the collective (single-program) pipeline: the
+# block leaves stacked [S, L/S, ...], stage s's slice run by stage s
+# (ops/collective_pipeline.py).
+# --------------------------------------------------------------------------
+
+# Megatron-style TP placement of the stacked block leaves over a model
+# axis: column-split the up-projections (their biases follow), row-split
+# the down-projections (a sum follows), replicate norms and residual
+# biases. Dims count from the end of the [..., d_in, d_out] tail of the
+# [S, L/S, ...] leaves. The FUSED qkv weight's column thirds are the Q/K/V
+# slabs, so a column split only lines up with the later split in three
+# when tp % 3 == 0; otherwise it is row-split (one sum before the bias).
+_TP_DIM_FROM_END = {
+    "mlp_fc_w": 1, "mlp_fc_b": 1,
+    "attn_proj_w": 2, "mlp_proj_w": 2,
+}
+
+
+def _tp_dim_from_end(name: str, tp: int) -> Optional[int]:
+    if name == "attn_qkv_w":
+        return 1 if tp % 3 == 0 else 2
+    if name == "attn_qkv_b":
+        return 1 if tp % 3 == 0 else None
+    return _TP_DIM_FROM_END.get(name)
+
+
+def spec_for(name: str, a: torch.Tensor, dim_names: Sequence[str],
+             tp: int, axis: str = "stage",
+             model_axis: Optional[str] = None) -> list:
+    """DTensor placements of stacked leaf ``name`` (``[S, L/S, ...]``) on a
+    mesh of ``dim_names``: split over ``axis`` on dim 0, and over
+    ``model_axis`` on its Megatron dim where ``tp`` divides it (a leaf
+    that does not divide stays replicated there, with a warning);
+    replicated over any other dimension."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    placements = [Replicate()] * len(dim_names)
+    placements[list(dim_names).index(axis)] = Shard(0)
+    d_from_end = _tp_dim_from_end(name, tp) if model_axis else None
+    if d_from_end is not None:
+        d = a.dim() - d_from_end
+        if a.shape[d] % tp == 0:
+            placements[list(dim_names).index(model_axis)] = Shard(d)
+        else:
+            import logging
+            logging.getLogger(__name__).warning(
+                "TP placement: %s dim %d (size %d) not divisible by %s=%d: "
+                "the leaf stays replicated over the model axis", name, d,
+                a.shape[d], model_axis, tp)
+    return placements
+
+
+def shard_stacked_for_stages(params, cfg: GPT2Config, mesh,
+                             axis: str = "stage",
+                             model_axis: Optional[str] = None):
+    """Split full params into (embed leaves, stacked blocks ``{k: [S, L/S,
+    ...]}``) for the collective pipeline. ``mesh`` is a list of S stage
+    devices (the device form: the blocks stay whole; the pipeline moves
+    each stage's slice to its device) or a ``DeviceMesh`` (the group form:
+    the blocks become DTensors of the whole mesh with :func:`spec_for`'s
+    placements, ``model_axis`` adding the Megatron split — the PP x TP
+    placement ``collective_pipeline(..., model_axis=...)`` takes).
+    Validates the stage count against the layers."""
+    if isinstance(mesh, (list, tuple)):
+        if model_axis is not None:
+            raise ValueError("model_axis needs a DeviceMesh (one rank a "
+                             "device)")
+        S, tp = len(mesh), 1
+    else:
+        names = mesh.mesh_dim_names
+        S = mesh.size(names.index(axis))
+        tp = mesh.size(names.index(model_axis)) if model_axis else 1
+    if cfg.n_layer % S:
+        raise ValueError(f"n_layer={cfg.n_layer} not divisible by "
+                         f"{S} stages")
+    stacked = {k: a.reshape((S, cfg.n_layer // S) + tuple(a.shape[1:]))
+               for k, a in stack_block_params(params, cfg).items()}
+    if not isinstance(mesh, (list, tuple)):
+        from torch.distributed.tensor import distribute_tensor
+
+        stacked = {k: distribute_tensor(
+            a.to(mesh.device_type), mesh,
+            spec_for(k, a, names, tp, axis, model_axis), src_data_rank=None)
+            for k, a in stacked.items()}
+    embed = {k: params[k] for k in _EMBED_KEYS}
+    return embed, stacked
+
+
+def make_stage_fn(cfg: GPT2Config, layers_per_stage: int,
+                  attn_impl=None) -> Callable:
+    """Stage body for the collective pipeline: this stage's layer slice
+    (leading dim ``layers_per_stage``), block by block (each under the
+    config's remat)."""
+
+    def stage_fn(stage_params, x):
+        blocks = [{k: v[j] for k, v in stage_params.items()}
+                  for j in range(layers_per_stage)]
+        return _run_blocks(blocks, x, cfg, attn_impl)
+
+    return stage_fn
+
+
+def pipelined_loss_fn(params, stacked_blocks, tokens, cfg: GPT2Config,
+                      mesh, num_micro: int, axis: str = "stage",
+                      model_axis: Optional[str] = None, attn_impl=None):
+    """Next-token CE with the block stack run as a collective pipeline.
+
+    ``params``: the embedding and final-norm leaves (wte/wpe/ln_f_*).
+    ``stacked_blocks``: the ``[S, L/S, ...]`` leaves of
+    :func:`shard_stacked_for_stages` for the same ``mesh`` (and
+    ``model_axis``: PP x TP in the group form)."""
+    from tepdist_tpu_torch.ops.collective_pipeline import (
+        collective_pipeline)
+
+    if isinstance(mesh, (list, tuple)):
+        S = len(mesh)
+    else:
+        S = mesh.size(mesh.mesh_dim_names.index(axis))
+    B, Tfull = tokens.shape
+    T = Tfull - 1
+    x = _embed(params, tokens[:, :-1], cfg)
+    x_micro = x.reshape(num_micro, B // num_micro, T, cfg.n_embd)
+    pipelined = collective_pipeline(
+        make_stage_fn(cfg, cfg.n_layer // S, attn_impl), mesh, axis=axis,
+        model_axis=model_axis)
+    y = pipelined(stacked_blocks, x_micro).reshape(B, T, cfg.n_embd)
+    y = _layer_norm(y, params["ln_f_g"], params["ln_f_b"])
+    return _ce_from_hidden(y, params["wte"], tokens[:, 1:], cfg)
 
 
 def fake_batch(cfg: GPT2Config, batch_size: int,

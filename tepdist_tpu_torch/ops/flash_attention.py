@@ -266,12 +266,15 @@ FLASH_DQ_OP = torch.ops.tepdist.flash_dq.default
 FLASH_DKV_OP = torch.ops.tepdist.flash_dkv.default
 
 
-def _use_ops() -> bool:
-    """Whether to call the kernels through their ops: only while a
-    dispatch mode is active (graph capture, a selective-checkpoint
-    policy). An eager step calls the wrappers directly, skipping the op's
-    host dispatch (50-94 us a call against 29-52 us, PERF.md section 6)."""
-    return _get_current_dispatch_mode() is not None
+def _use_ops(x: Optional[torch.Tensor] = None) -> bool:
+    """Whether to call the kernels through their ops: while a dispatch
+    mode is active (graph capture, a selective-checkpoint policy), or on a
+    tensor subclass (a DTensor, whose sharding rule is the op's). An eager
+    step calls the wrappers directly, skipping the op's host dispatch
+    (50-94 us a call against 29-52 us, PERF.md section 6)."""
+    return (_get_current_dispatch_mode() is not None
+            or (x is not None and type(x) is not torch.Tensor
+                and not isinstance(x, torch.nn.Parameter)))
 
 
 # --------------------------------------------------------------------------
@@ -303,7 +306,7 @@ def _backward(ctx, do, dlse):
     if dlse is not None:
         delta = delta - dlse.float()
     delta = delta.contiguous()
-    if _use_ops():
+    if _use_ops(q):
         dq = FLASH_DQ_OP(q, k, v, do, lse, delta, *args, ctx.n_head)
         dk, dv = FLASH_DKV_OP(q, k, v, do, lse, delta, *args, ctx.n_head)
     else:
@@ -330,7 +333,7 @@ class _Flash(torch.autograd.Function):
 
 
 def _attend(q, k, v, causal: bool, scale: float, n_head: int):
-    if _use_ops():
+    if _use_ops(q):
         return FLASH_FWD_OP(_flat(q), _flat(k), _flat(v), causal, scale,
                             n_head)
     return _Flash.apply(_flat(q), _flat(k), _flat(v), causal, scale, n_head)

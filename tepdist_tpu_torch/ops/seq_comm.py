@@ -1,6 +1,8 @@
-"""Sequence-parallel transport: the port's ``lax.ppermute`` (a neighbour
-shift around a ring) and ``lax.all_to_all`` (tiled, between the sequence
-and head dims).
+"""Transport over the ranks of one group: the port's ``lax.ppermute`` (a
+neighbour shift around a ring), ``lax.all_to_all`` (tiled, between the
+sequence and head dims), and the collectives a pipeline stage spread over
+replicas needs: ``psum`` (all-reduce), ``psum_scatter`` (reduce-scatter)
+and ``all_gather`` of flat vectors.
 
 The reference runs ring and Ulysses attention under ``shard_map``, where
 each device sees its own block of the sequence. The port runs the same
@@ -55,6 +57,20 @@ class Transport:
         ``concat_dim``, in rank order."""
         raise NotImplementedError
 
+    def all_reduce_raw(self, shards: Shards) -> Shards:
+        """Every rank's tensor replaced by the sum over the ranks."""
+        raise NotImplementedError
+
+    def reduce_scatter_raw(self, shards: Shards) -> Shards:
+        """Tiled reduce-scatter of 1-D tensors of ``size * chunk``
+        elements: rank i receives piece i of the sum over the ranks."""
+        raise NotImplementedError
+
+    def all_gather_raw(self, shards: Shards) -> Shards:
+        """Tiled all-gather of 1-D tensors: every rank receives the
+        concatenation of every rank's tensor, in rank order."""
+        raise NotImplementedError
+
     def split(self, x: torch.Tensor, dim: int) -> Shards:
         """The shards this process holds of ``x`` along ``dim``, each
         contiguous: for a group, ``x`` is already this rank's shard."""
@@ -86,6 +102,27 @@ class DeviceTransport(Transport):
         return [torch.cat([pieces[j][i].to(self.devices[i])
                            for j in range(P)], concat_dim)
                 for i in range(P)]
+
+    def _total(self, shards):
+        # Summed in rank order on the first rank's device.
+        home = self.devices[0]
+        total = shards[0].to(home, copy=True)
+        for x in shards[1:]:
+            total.add_(x.to(home))
+        return total
+
+    def all_reduce_raw(self, shards):
+        total = self._total(shards)
+        return [total.to(d, copy=True) for d in self.devices]
+
+    def reduce_scatter_raw(self, shards):
+        pieces = self._total(shards).chunk(self.size)
+        return [p.to(d, copy=True) for p, d in zip(pieces, self.devices)]
+
+    def all_gather_raw(self, shards):
+        home = self.devices[0]
+        full = torch.cat([x.to(home) for x in shards])
+        return [full.to(d, copy=True) for d in self.devices]
 
     def split(self, x, dim):
         if x.shape[dim] % self.size:
@@ -137,6 +174,34 @@ class GroupTransport(Transport):
         recv = torch.empty_like(send)
         dist.all_to_all_single(recv, send, group=self.group)
         return [torch.cat(recv.unbind(0), concat_dim)]
+
+    def all_reduce_raw(self, shards):
+        import torch.distributed as dist
+
+        x = shards[0].contiguous()
+        if self.size > 1:
+            dist.all_reduce(x, group=self.group)
+        return [x]
+
+    def reduce_scatter_raw(self, shards):
+        import torch.distributed as dist
+
+        x = shards[0].contiguous()
+        if self.size == 1:
+            return [x]
+        out = x.new_empty(x.numel() // self.size)
+        dist.reduce_scatter_tensor(out, x, group=self.group)
+        return [out]
+
+    def all_gather_raw(self, shards):
+        import torch.distributed as dist
+
+        x = shards[0].contiguous()
+        if self.size == 1:
+            return [x]
+        out = x.new_empty(x.numel() * self.size)
+        dist.all_gather_into_tensor(out, x, group=self.group)
+        return [out]
 
     def split(self, x, dim):
         return [x.contiguous()]

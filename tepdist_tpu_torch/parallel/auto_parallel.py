@@ -597,13 +597,19 @@ def auto_parallel_explore(
     step is the gradient), as in the reference, and the space includes
     the sequence-parallel meshes (priced with the ring/Ulysses cost); a
     seq winner is lowered from ``fn`` rewritten by
-    ``attention_motif.seq_rewritten_loss``. The pipeline candidates come
-    with ROADMAP item 13b; the report records them as ``excluded_kinds``.
+    ``attention_motif.seq_rewritten_loss``, and the pipeline stage cuts;
+    a pipeline winner is returned as a
+    :class:`~tepdist_tpu_torch.parallel.exploration.PipelineWinner` (call
+    ``.build(optimizer)`` for the executable). A non-scalar ``fn``
+    searches mesh factorizations only (the report records the kinds left
+    out as ``excluded_kinds``).
 
-    The winner comes back as a lowered :class:`ParallelPlan` with
+    SPMD and seq winners come back as a lowered :class:`ParallelPlan` with
     ``.cost`` and ``.candidates`` attached (planning needs no devices;
     running it needs a process group of the winner's size)."""
     from tepdist_tpu_torch.parallel.exploration import (
+        PipelineWinner,
+        pipeline_candidates,
         seq_candidates,
         spmd_candidates,
         winner_lowering_postcheck,
@@ -640,7 +646,14 @@ def auto_parallel_explore(
                                          batch_rows)
             if _col is not None:
                 _col.phase("seq", _time.perf_counter() - _t0)
-    excluded = ["pipeline"] if scalar_loss else ["seq", "pipeline"]
+            _t0 = _time.perf_counter()
+            candidates += pipeline_candidates(
+                fn, example_args[0], tuple(example_args[1:]), num_devices,
+                batch_rows, num_micro_batches if num_micro_batches > 1
+                else 4)
+            if _col is not None:
+                _col.phase("pipeline", _time.perf_counter() - _t0)
+    excluded = [] if scalar_loss else ["seq", "pipeline"]
     if not candidates:
         raise RuntimeError("no feasible topology proposal")
 
@@ -672,10 +685,12 @@ def auto_parallel_explore(
                 report["materialization_fallbacks"] = fallbacks
             plan.exploration_report = report
         plan.excluded_kinds = excluded
-        # Winner-only lowering post-check: runs when this process group
-        # spans the winner's mesh.
-        winner_lowering_postcheck(
-            plan, tree_leaves((example_args, example_kwargs)))
+        if not isinstance(plan, PipelineWinner):
+            # Winner-only lowering post-check: runs when this process
+            # group spans the winner's mesh (a pipeline winner has no
+            # single lowered step until .build()).
+            winner_lowering_postcheck(
+                plan, tree_leaves((example_args, example_kwargs)))
         return plan
     raise RuntimeError("no proposal could be materialized")
 
@@ -684,6 +699,20 @@ def _materialize_explored(best, fn, graph, in_tree, out_tree, example_args,
                           annotations, state_alias, priced_on_fn_graph,
                           candidates):
     """Lower one explored candidate into its plan form."""
+    if best["kind"] == "pipeline":
+        from tepdist_tpu_torch.parallel.exploration import PipelineWinner
+
+        return PipelineWinner(
+            num_stages=best["num_stages"],
+            num_micro_batches=best["num_micro_batches"],
+            intra_tp=best.get("intra_tp", 1),
+            cost=best["cost"], candidates=candidates,
+            loss_fn=fn, params=example_args[0],
+            example_batch=tuple(example_args[1:]),
+            placement=best.get("placement", "blocked"),
+            interleave_groups=best.get("interleave_groups"),
+            comm_dtype=best.get("comm_dtype", ""),
+            zero=best.get("zero", False))
     topo = best["topology"]
     # Candidate strategies were planned on the PRICING graph; when that is
     # the fn graph itself (non-scalar fn) they can be reused directly.

@@ -8,23 +8,30 @@ levels, plans each, and keeps the Evaluator-minimal one).
 The port of ``tepdist_tpu/parallel/exploration.py``. Every explorer of the
 port — ``train.plan_training(explore=True)``, ``train.explore_parallelism``
 and the library-level ``auto_parallel_explore`` — calls :func:`explore`
-or :func:`spmd_candidates` here, so they all search the SAME space: the
-SPMD mesh factorizations (data / model / data x model / 3-level), each
-with its ``@bf16``, ``@int8`` and ``@zero`` modifiers. The reference's
-other two kinds come with their runtimes: pipeline stage cuts
-(``pipeline_candidates``, ``PipelineWinner``) with ROADMAP item 13b (their
-blocked candidates put several devices in a stage) and
-sequence-parallel meshes (``seq_candidates``) with item 14. Until then
-:func:`explore` records them as ``excluded_kinds`` in its result and its
-report, as the reference records a restricted search.
+or :func:`spmd_candidates` here, so they all search the SAME space:
 
-The winner is a dict: ``{"kind": "spmd", "topology": ..., "cost": Cost,
-"candidates": [all proposals], ...}``.
+  * SPMD mesh factorizations (data / model / data x model / 3-level),
+    each with its ``@bf16``, ``@int8`` and ``@zero`` modifiers,
+  * sequence-parallel data x seq meshes priced with the ring/Ulysses
+    attention cost when the loss contains attention motifs,
+  * pipeline stage cuts (S x M x intra-stage TP, with their ``@zero`` and
+    comm-dtype modifiers, blocked and interleaved), priced by the task
+    scheduler's simulation (``Evaluator.run_pipeline``).
+
+A kind a caller leaves out is recorded as ``excluded_kinds`` in the result
+and its report, as the reference records a restricted search.
+
+The winner is a dict: ``{"kind": "spmd"|"pipeline", ..., "cost": Cost,
+"candidates": [all proposals]}``; the library surface
+(``auto_parallel_explore``) returns a pipeline winner as a
+:class:`PipelineWinner`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
+import math
 import time
 from typing import Any, Callable, Dict, List, Tuple
 
@@ -32,6 +39,56 @@ from tepdist_tpu_torch.core.service_env import ServiceEnv
 from tepdist_tpu_torch.telemetry import observatory, span
 
 log = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass
+class PipelineWinner:
+    """A pipeline-stage-cut exploration winner (reference: a DeviceSplitPlan
+    whose outermost ordinal is the stage level). ``build(optimizer)``
+    materializes the task-graph runtime executable for it (over
+    ``devices``; under a process group, one device a rank)."""
+
+    num_stages: int
+    num_micro_batches: int
+    intra_tp: int
+    cost: Any
+    candidates: List[Dict[str, Any]]
+    loss_fn: Callable
+    params: Any
+    example_batch: Tuple[Any, ...]
+    kind: str = "pipeline"
+    mode: str = "exploration"
+    placement: str = "blocked"
+    interleave_groups: Any = None
+    comm_dtype: str = ""
+    zero: bool = False
+
+    def build(self, optimizer, devices=None, **kwargs):
+        import torch.distributed as dist
+
+        from tepdist_tpu_torch.parallel.pipeline import plan_pipeline
+        from tepdist_tpu_torch.runtime.executor import (PipelineExecutable,
+                                                        stage_replicas)
+
+        if devices is not None:
+            n = len(devices)
+        elif dist.is_initialized():
+            n = dist.get_world_size()
+        else:
+            n = self.num_stages
+        prog = plan_pipeline(self.loss_fn, self.num_stages,
+                             self.num_micro_batches, self.params,
+                             *self.example_batch, replicas=stage_replicas(
+                                 n, self.num_stages, self.intra_tp,
+                                 self.placement, self.interleave_groups))
+        prog.comm_dtype = self.comm_dtype
+        prog.zero = self.zero
+        return PipelineExecutable(prog, devices=devices,
+                                  optimizer=optimizer,
+                                  intra_stage_tp=self.intra_tp,
+                                  placement=self.placement,
+                                  interleave_groups=self.interleave_groups,
+                                  **kwargs)
 
 
 # ----------------------------------------------------------------------
@@ -182,6 +239,226 @@ def seq_candidates(graph, n_devices: int,
     return out
 
 
+def pipeline_candidates(loss_fn: Callable, params, example_batch,
+                        n_devices: int, batch_rows: int,
+                        num_micro_batches: int = 4) -> List[Dict[str, Any]]:
+    """Pipeline stage-cut proposals S x M x intra-stage-TP (reference: up
+    to 3 split ordinals incl. the stage level, auto_parallel.cc:132-181):
+    each tp variant re-prices the SAME stage cut with per-stage compute
+    divided over the model axis plus the stage planner's TP comm, folded
+    into the task-time model as equivalent flops. Each blocked cut also
+    comes with its ``@zero`` (dp > 1) and comm-dtype variants, and each
+    even S with an interleaved variant over S/2 groups."""
+    from tepdist_tpu_torch.core.mesh import MeshTopology
+    from tepdist_tpu_torch.core.tree import tree_leaves
+    from tepdist_tpu_torch.parallel.evaluator import Evaluator
+    from tepdist_tpu_torch.parallel.performance_utils import (
+        OPT_STATE_FACTOR, PerfUtils, chip_spec)
+    from tepdist_tpu_torch.parallel.pipeline import plan_pipeline
+    from tepdist_tpu_torch.runtime.execution_plan import (
+        build_pipeline_task_dag)
+    from tepdist_tpu_torch.runtime.task_graph import TaskType
+    from tepdist_tpu_torch.runtime.executor import stage_tp_over_nccl
+
+    # Stage owners hold their stage's params + optimizer state; the
+    # scheduler's activation/weight model never sees the optimizer, so
+    # pipeline candidates carry the state charge explicitly (per stage
+    # ~ total/S, divided over the intra-stage TP axis where present).
+    param_bytes = float(sum(math.prod(l.shape) * l.element_size()
+                            for l in tree_leaves(params)))
+
+    no_stage_tp = stage_tp_over_nccl()
+    out: List[Dict[str, Any]] = []
+    for S in (2, 4, 8, 16):
+        # Blocked placements need S <= devices; VIRTUAL stages (the
+        # interleaved variants below) only need S/v groups to fit, so
+        # S up to v * n_devices stays proposable.
+        blocked_ok = S <= n_devices and n_devices % S == 0
+        if not blocked_ok and (S % 2 or n_devices % (S // 2)):
+            observatory.record_prune(
+                "pipeline", f"S={S}", "enumeration_skip",
+                message=f"S={S} not placeable on {n_devices} devices "
+                        "(blocked or interleaved)")
+            continue
+        per = n_devices // S if blocked_ok else 0
+        for M in sorted({num_micro_batches, 2 * num_micro_batches}):
+            if batch_rows % M:
+                observatory.record_prune(
+                    "pipeline", f"S={S} M={M}", "enumeration_skip",
+                    message=f"batch_rows={batch_rows} not divisible "
+                            f"by M={M}")
+                continue
+            try:
+                prog = plan_pipeline(loss_fn, S, M, params, *example_batch)
+            except Exception as e:  # noqa: BLE001 — infeasible proposal
+                observatory.record_prune(
+                    "pipeline", f"S={S} M={M}", "planning_exception",
+                    exc=e)
+                continue
+            stage_devs = ([tuple(range(s * per, (s + 1) * per))
+                           for s in range(S)] if blocked_ok else None)
+            stage_graphs = None
+            for tp in ((1, 2, 4, 8) if blocked_ok else ()):
+                if tp > per or per % tp:
+                    observatory.record_prune(
+                        "pipeline", f"S={S} M={M} tp={tp}",
+                        "enumeration_skip",
+                        message=f"tp={tp} does not fit the {per} "
+                                "devices per stage")
+                    continue
+                if tp > 1 and no_stage_tp:
+                    observatory.record_prune(
+                        "pipeline", f"S={S} M={M} tp={tp}",
+                        "enumeration_skip",
+                        message="stage x TP over NCCL hangs in its first "
+                                "step (ROADMAP C8)")
+                    continue
+                try:
+                    dag, _ = build_pipeline_task_dag(prog, stage_devs)
+                    if tp > 1:
+                        if stage_graphs is None:
+                            stage_graphs = _stage_fwd_graphs(prog)
+                        comm_s = _stage_tp_comm_seconds(stage_graphs, tp)
+                        sec_per_flop = PerfUtils.compute_time(
+                            1.0, chip_spec())
+                        for n in dag.nodes:
+                            if n.task_type == TaskType.COMPUTE:
+                                n.flops = (n.flops / tp
+                                           + comm_s[n.stage] / sec_per_flop)
+                    ev = Evaluator(MeshTopology([("stage", S)]))
+                    stage_state = OPT_STATE_FACTOR * param_bytes / (S * tp)
+                    cost = ev.run_pipeline(dag,
+                                           opt_state_bytes=stage_state)
+                    out.append(
+                        {"kind": "pipeline", "num_stages": S,
+                         "num_micro_batches": M, "intra_tp": tp,
+                         "placement": "blocked", "cost": cost})
+                    # ZeRO variant: the stage's weight update sharded over
+                    # the intra-stage DP replicas (per//tp of them). NOT
+                    # gated on fidelity feasibility: the binding case is
+                    # a stage whose replicated optimizer state won't fit.
+                    dp = per // tp
+                    if dp > 1:
+                        zs = PerfUtils.zero_update_cost(
+                            param_bytes / (S * tp), dp, "", chip_spec())
+                        zcost = ev.run_pipeline(
+                            dag, opt_state_bytes=stage_state, zero_dp=dp,
+                            zero_comm_s=zs)
+                        out.append(
+                            {"kind": "pipeline", "num_stages": S,
+                             "num_micro_batches": M, "intra_tp": tp,
+                             "placement": "blocked", "cost": zcost,
+                             "zero": True})
+                    # Comm-dtype variants: the SAME stage cut with the
+                    # cross-stage SEND/RECV (and any AR) payloads shrunk
+                    # to the wire dtype (the scheduler prices the tagged
+                    # nodes with the compressed ppermute/AR cost).
+                    comm_nodes = [n for n in dag.nodes
+                                  if n.task_type in (TaskType.SEND,
+                                                     TaskType.RECV,
+                                                     TaskType.AR)]
+                    if not comm_nodes:
+                        continue
+                    for dt in ("bfloat16", "int8"):
+                        for n in comm_nodes:
+                            n.comm_dtype = dt
+                        if cost.memory_feasible:
+                            ccost = ev.run_pipeline(
+                                dag, opt_state_bytes=stage_state)
+                            out.append(
+                                {"kind": "pipeline", "num_stages": S,
+                                 "num_micro_batches": M, "intra_tp": tp,
+                                 "placement": "blocked", "cost": ccost,
+                                 "comm_dtype": dt})
+                        if dp > 1:
+                            zs = PerfUtils.zero_update_cost(
+                                param_bytes / (S * tp), dp, dt,
+                                chip_spec())
+                            zc = ev.run_pipeline(
+                                dag, opt_state_bytes=stage_state,
+                                zero_dp=dp, zero_comm_s=zs)
+                            out.append(
+                                {"kind": "pipeline", "num_stages": S,
+                                 "num_micro_batches": M, "intra_tp": tp,
+                                 "placement": "blocked", "cost": zc,
+                                 "comm_dtype": dt, "zero": True})
+                    for n in comm_nodes:
+                        n.comm_dtype = ""
+                except Exception as e:  # noqa: BLE001 — infeasible proposal
+                    observatory.record_prune(
+                        "pipeline", f"S={S} M={M} tp={tp}",
+                        "planning_exception", exc=e)
+            # Interleaved variants (Megatron virtual stages, reference:
+            # the stage ordinal placed round-robin): the SAME S-stage cut
+            # over G = S/v device groups, stage s -> group s % G. The
+            # scheduler's interleaved-aware candidate search prices the
+            # chunk-alternating schedule.
+            for v in (2,):
+                if S % v or S // v < 2:
+                    observatory.record_prune(
+                        "pipeline", f"S={S} M={M} il/v={v}",
+                        "enumeration_skip",
+                        message=f"S={S} yields fewer than 2 virtual "
+                                f"groups at v={v}")
+                    continue
+                G = S // v
+                if n_devices % G:
+                    observatory.record_prune(
+                        "pipeline", f"S={S} M={M} il/G={G}",
+                        "enumeration_skip",
+                        message=f"{G} groups do not divide "
+                                f"{n_devices} devices")
+                    continue
+                per_g = n_devices // G
+                groups = [tuple(range(g * per_g, (g + 1) * per_g))
+                          for g in range(G)]
+                try:
+                    dag, _ = build_pipeline_task_dag(
+                        prog, [groups[s % G] for s in range(S)])
+                    # Each of the G groups owns S/G virtual stages' params
+                    # + optimizer state. (ZeRO variants of interleaved
+                    # placements are not enumerated: the chunk-alternating
+                    # schedule leaves no idle window for the update
+                    # collectives the blocked variants amortize.)
+                    cost = Evaluator(
+                        MeshTopology([("stage", S)])).run_pipeline(
+                            dag,
+                            opt_state_bytes=(OPT_STATE_FACTOR
+                                             * param_bytes / G))
+                    out.append(
+                        {"kind": "pipeline", "num_stages": S,
+                         "num_micro_batches": M, "intra_tp": 1,
+                         "placement": "interleaved",
+                         "interleave_groups": G, "cost": cost})
+                except Exception as e:  # noqa: BLE001 — infeasible proposal
+                    observatory.record_prune(
+                        "pipeline", f"S={S} M={M} il/G={G}",
+                        "planning_exception", exc=e)
+    return out
+
+
+def _stage_fwd_graphs(prog) -> List[Any]:
+    """Each stage's forward graph ONCE (tp-independent; reused across the
+    tp variants of a proposal): the stage module as an ``FxGraph``."""
+    from tepdist_tpu_torch.graph.fx_graph import FxGraph
+
+    return [FxGraph(prog.decomp.stage_fn(s))
+            for s in range(prog.num_stages)]
+
+
+def _stage_tp_comm_seconds(stage_graphs, tp: int) -> List[float]:
+    """Per-stage FORWARD TP comm time (seconds) under a ``model`` axis of
+    size ``tp``: the stage planner's comm-only objective. NOT doubled for
+    the backward: the caller adds it to both the fwd and the bwd COMPUTE
+    node of each (stage, micro), which prices the reverse collectives
+    (that mirror the forward's) exactly once."""
+    from tepdist_tpu_torch.parallel.cost_spmd_strategy import (
+        CostSpmdStrategy)
+
+    return [(CostSpmdStrategy(g, "model", tp, fixed={}).run().comm_cost
+             or 0.0) for g in stage_graphs]
+
+
 # ----------------------------------------------------------------------
 # The unified explorer
 # ----------------------------------------------------------------------
@@ -192,32 +469,27 @@ def explore(
     *example_batch,
     n_devices: int,
     num_micro_batches: int = 4,
-    include_pipeline: bool = False,
+    include_pipeline: bool = True,
     include_seq: bool = True,
     entry_point: str = "explore",
 ) -> Dict[str, Any]:
-    """Exploration over the candidate space (reference:
-    RunExplorationlMode over DeviceSplitPlan proposals): evaluate the SPMD
-    mesh factorizations and their modifiers, and the sequence-parallel
-    data x seq meshes (``include_seq``), under the analytic cost model on
-    the loss's value-and-grad graph, captured on fake tensors (no device
-    is needed); return the winner as ``{"kind": "spmd", ...,
-    "candidates": [...]}``.
+    """Exploration over the unified candidate space (reference:
+    RunExplorationlMode over DeviceSplitPlan proposals incl. pipeline
+    levels): evaluate the SPMD mesh factorizations and their modifiers,
+    the sequence-parallel data x seq meshes (``include_seq``) and the
+    pipeline stage cuts (``include_pipeline``) under the analytic cost
+    model (the SPMD and seq kinds on the loss's value-and-grad graph,
+    captured on fake tensors: no device is needed); return the winner as
+    ``{"kind": "spmd"|"pipeline", ..., "candidates": [...]}``.
 
-    ``include_pipeline`` must stay False until the multi-device pipeline
-    stages (ROADMAP item 13b) are ported. What the search leaves out is
-    RECORDED in the result (``excluded_kinds``) and its report, never
-    silent.
+    A restricted search is RECORDED in the result (``excluded_kinds``) and
+    its report, never silent.
 
     The whole search runs under an observatory capture: every enumerated
     proposal lands in the winner's ``best["report"]``
     (``telemetry/observatory.ExplorationReport``) as a priced candidate
     or a typed prune record, with phase timings and the winner's
     rationale."""
-    if include_pipeline:
-        raise NotImplementedError(
-            "pipeline candidates need more than one device in a stage, "
-            "which the pipeline runtime does not run yet (ROADMAP item 13b)")
     from tepdist_tpu_torch.core.tree import tree_leaves
     from tepdist_tpu_torch.graph.fx_graph import trace_graph
     from tepdist_tpu_torch.train import value_and_grad
@@ -245,7 +517,17 @@ def explore(
                 col.phase("seq", time.perf_counter() - t0)
         else:
             excluded.append("seq")
-        excluded.append("pipeline")
+        if include_pipeline:
+            t0 = time.perf_counter()
+            batch_rows = tree_leaves(example_batch)[0].shape[0]
+            with span("explore:pipeline", cat="planner"):
+                candidates += pipeline_candidates(
+                    loss_fn, params, example_batch, n_devices, batch_rows,
+                    num_micro_batches)
+            if col is not None:
+                col.phase("pipeline", time.perf_counter() - t0)
+        else:
+            excluded.append("pipeline")
         if not candidates:
             if col is not None:
                 report = observatory.build_report(

@@ -13,6 +13,16 @@ A stage's backward runs its forward ``GraphModule`` again under autograd
 (:func:`stage_vjp`), as ``jax.vjp`` of the stage forward does in the
 reference: only stage inputs live from a forward task to its backward, which
 is what the scheduler's memory model assumes.
+
+A stage spread over ``replicas`` intra-stage data replicas runs modules
+captured at the replica's rows (the micro batch's rows / replicas): each
+replica computes the loss over its own rows, and the executor averages
+losses and gradients over the replicas (PyTorch DDP's rule; the
+reference's GSPMD program computes the global mean, the same value for a
+loss that is a mean over rows, as every model of the repo's is). Under an
+initialized process group the stage cut is made on rank 0 and sent to
+every rank (:func:`on_rank0`): the stage ILP stops at a time limit, and
+ranks that cut alone could disagree.
 """
 
 from __future__ import annotations
@@ -82,17 +92,40 @@ class PipelineProgram:
     # build_pipeline_task_dag (SEND/RECV tagging) and the executor's
     # gradient-accumulate payloads.
     comm_dtype: str = ""
-    # ZeRO weight-update sharding modifier (needs more than one device in
-    # a stage: not in the port yet, the executor raises on it).
+    # ZeRO weight-update sharding modifier: each stage's optimizer state
+    # is sharded over its intra-stage data replicas (the executor acts on
+    # it where a stage has more than one replica).
     zero: bool = False
     # The stage planner (its ``solver_status`` and ``solve_seconds``) and
     # the capture's seconds, for reports.
     sketch: Optional[GraphSketch] = None
     trace_seconds: float = 0.0
+    # The intra-stage data replicas the stage modules were captured for
+    # (each runs micro rows / replicas), and what ``with_replicas`` needs
+    # to capture the loss again for another count.
+    replicas: int = 1
+    loss_fn: Optional[Callable] = None
+    example: Optional[Tuple[Any, Tuple[Any, ...]]] = None
 
     @property
     def stages(self):
         return self.decomp.stages
+
+    def with_replicas(self, replicas: int) -> "PipelineProgram":
+        """This program captured and cut again for ``replicas`` intra-stage
+        data replicas (the modifiers carried over)."""
+        if replicas == self.replicas:
+            return self
+        if self.loss_fn is None:
+            raise ValueError("this program keeps no loss to capture again "
+                             f"for {replicas} replicas: plan it with "
+                             "plan_pipeline(..., replicas=...)")
+        params, batch = self.example
+        prog = plan_pipeline(self.loss_fn, self.num_stages,
+                             self.num_micro_batches, params, *batch,
+                             batch_dim=self.batch_dim, replicas=replicas)
+        prog.comm_dtype, prog.zero = self.comm_dtype, self.zero
+        return prog
 
     def stage_flops(self) -> List[float]:
         flops = [0.0] * self.num_stages
@@ -202,21 +235,38 @@ class PipelineProgram:
         return step
 
 
-def micro_abstract_batch(batch, num_micro_batches: int, batch_dim: int = 0):
+def micro_abstract_batch(batch, num_micro_batches: int, batch_dim: int = 0,
+                         replicas: int = 1):
     """Batch trees cut to MICRO-batch shapes (the batch dim divided by M
-    where it divides) — THE micro-shape trace contract: plan_pipeline
-    traces the stage modules at these shapes, because the capture bakes
-    constants such as mean denominators from the trace shapes. The leaves
-    are views of the first micro slice (no copy): the capture reads only
-    their shapes, dtypes and devices."""
+    where it divides), and over ``replicas`` where that divides too — THE
+    micro-shape trace contract: plan_pipeline traces the stage modules at
+    these shapes, because the capture bakes constants such as mean
+    denominators from the trace shapes. The leaves are views of the first
+    slice (no copy): the capture reads only their shapes, dtypes and
+    devices."""
 
     def micro(leaf):
-        if leaf.dim() and leaf.shape[batch_dim] % num_micro_batches == 0:
-            return leaf.narrow(batch_dim, 0,
-                               leaf.shape[batch_dim] // num_micro_batches)
-        return leaf
+        if not leaf.dim() or leaf.shape[batch_dim] % num_micro_batches:
+            return leaf
+        rows = leaf.shape[batch_dim] // num_micro_batches
+        if rows % replicas == 0:
+            rows //= replicas
+        return leaf.narrow(batch_dim, 0, rows)
 
     return tuple(tree_map(micro, b) for b in batch)
+
+
+def on_rank0(fn: Callable[[], Any]) -> Any:
+    """``fn()`` on rank 0 of an initialized process group, its result sent
+    to every rank (a search with a time limit decides once); without a
+    group, or on one rank, ``fn()`` itself."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return fn()
+    box = [fn() if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 def plan_pipeline(
@@ -226,6 +276,7 @@ def plan_pipeline(
     params,
     *batch,
     batch_dim: int = 0,
+    replicas: int = 1,
 ) -> PipelineProgram:
     """Capture, ILP-cut and decompose ``loss_fn(params, *batch)`` into a
     pipeline program (reference: AutoParallel pipeline path steps 3-5).
@@ -233,14 +284,28 @@ def plan_pipeline(
     The forward loss is captured on fake tensors at MICRO-batch shapes (no
     device memory): the stage modules are the per-micro-batch slices
     (reference: SyncFreeDecomposition builds CG over micro-batch shapes),
-    so baked constants like mean denominators are right per micro batch."""
-    micro_batch = micro_abstract_batch(batch, num_micro_batches, batch_dim)
+    so baked constants like mean denominators are right per micro batch.
+    With ``replicas`` > 1 (intra-stage data parallelism) the shapes are a
+    replica's share of the micro batch, and the first batch leaf's micro
+    rows must divide over the replicas. Under a process group the cut is
+    rank 0's (:func:`on_rank0`)."""
+    leaves = tree_leaves(tuple(batch))
+    if replicas > 1:
+        rows = leaves[0].shape[batch_dim] if leaves else 0
+        if not leaves or rows % (num_micro_batches * replicas):
+            raise ValueError(
+                f"intra-stage data parallelism over {replicas} replicas "
+                f"needs the batch rows ({rows}) to divide into "
+                f"{num_micro_batches} micro batches of {replicas} equal "
+                "shares")
+    micro_batch = micro_abstract_batch(batch, num_micro_batches, batch_dim,
+                                       replicas)
     t0 = time.perf_counter()
     graph, in_tree, _ = trace_graph(loss_fn, params, *micro_batch,
                                     functional=True)
     trace_seconds = time.perf_counter() - t0
     sketch = GraphSketch(graph)
-    assignment = sketch.stage_plan(num_stages)
+    assignment = on_rank0(lambda: sketch.stage_plan(num_stages))
     decomp = StageDecomposition(graph, assignment, num_stages)
     # Batch leaves: flat indices belonging to the batch args (everything
     # after the params leaves).
@@ -256,4 +321,7 @@ def plan_pipeline(
         in_tree=in_tree,
         sketch=sketch,
         trace_seconds=trace_seconds,
+        replicas=replicas,
+        loss_fn=loss_fn,
+        example=(params, tuple(batch)),
     )

@@ -12,10 +12,13 @@ The decomposition ENTRY -> {GAInit, CG, GA, AG} becomes one Python step
 (``build_ga_step``): GAInit = zero accumulators shaped like the params,
 CG = the per-micro-batch ``grad_fn``, GA = an add into the accumulator,
 AG = the optimizer apply after the loop. Ported: the fidelity path, the
-FP16_COMM bf16 compress path and the int8 comm dtype (stochastic-rounding
-fake quantization, ``parallel/quantize.py``). The shard_map ZeRO path
-(``zero_dp``) comes with the pipeline runtime (ROADMAP item 13); on the
-SPMD path ZeRO is placements only (``auto_parallel.apply_zero_sharding``).
+FP16_COMM bf16 compress path, the int8 comm dtype (stochastic-rounding
+fake quantization, ``parallel/quantize.py``) and the explicit ZeRO update
+(``zero_dp``: reduce-scatter, the apply on a shard, all-gather, over a
+process group of data replicas, where the reference runs ``shard_map``).
+On the SPMD path ZeRO is placements only
+(``auto_parallel.apply_zero_sharding``); the pipeline executor shards its
+stages' state in the same padded flat layout (``zero_pad_params``).
 """
 
 from __future__ import annotations
@@ -194,6 +197,36 @@ def analyze_sync_free(
 # --------------------------------------------------------------------------
 
 
+def zero_pad_flat(x: torch.Tensor, dp: int) -> torch.Tensor:
+    """``x`` flattened and zero-padded to a multiple of ``dp``: the
+    canonical ZeRO shard layout, contiguous 1/dp rows of the padded flat
+    vector a replica."""
+    flat = x.reshape(-1)
+    pad = (-flat.numel()) % dp
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    return flat
+
+
+def zero_pad_params(params, zero_dp: int):
+    """Params tree re-laid-out as padded flat leaves (``zero_pad_flat``).
+    ``optimizer.init`` on this tree gives the GLOBAL optimizer state of
+    the explicit ZeRO GA path: each moment leaf is a flat (dp * chunk,)
+    vector whose contiguous 1/dp rows are one replica's shard."""
+    return tree_map(lambda p: zero_pad_flat(p, zero_dp), params)
+
+
+def zero_shard_params(params, zero_dp: int, index: int):
+    """Replica ``index``'s rows of :func:`zero_pad_params` (copies): the
+    params tree the step's ``opt_state`` is initialized over on that
+    replica."""
+    def shard(p):
+        flat = zero_pad_flat(p, zero_dp)
+        c = flat.numel() // zero_dp
+        return flat[index * c:(index + 1) * c].clone()
+    return tree_map(shard, params)
+
+
 def _compress(grads):
     """The bf16 wire of FP16_COMM: round each floating gradient to bf16."""
     return tree_map(lambda g: g.to(torch.bfloat16)
@@ -206,6 +239,8 @@ def build_ga_step(
     num_micro_batches: int,
     batch_argnums: Tuple[int, ...] = (1,),
     comm_dtype: str = "",
+    zero_dp: int = 0,
+    zero_axis_name=None,
 ) -> Callable:
     """Construct the sync-free GA training step.
 
@@ -220,6 +255,19 @@ def build_ga_step(
         "int8" (quantize->dequantize each contribution through int8 chunk
         scales with stochastic rounding, drawn from one generator seeded
         0x7e9d on the params' device).
+      zero_dp / zero_axis_name: the explicit ZeRO-1 weight update
+        (arXiv:2004.13336) over ``zero_axis_name``, the process group of
+        ``zero_dp`` data replicas (one a process, each calling the step on
+        its own rows): the accumulated gradient is reduce-scattered
+        (``reduce_scatter_tensor``: the apply sees the SUM over the
+        replicas on its 1/dp shard; fold your own 1/dp for a mean),
+        ``apply_fn`` runs on the padded flat param and gradient SHARDS
+        (init the optimizer on ``zero_shard_params(params, dp, rank)``),
+        and the updated shards are all-gathered back to full shapes
+        (``all_gather_into_tensor``). With a compressed comm dtype the
+        reduce-scatter runs at bf16 (int8 contributions were quantized per
+        micro batch already), and the all-gather at
+        ``param_wire_dtype`` (bf16: params are never int8-quantized).
 
     Returns ``step(params, opt_state, *batch) -> (mean_loss, params,
     opt_state)``. As in the JAX package, the accumulator has the
@@ -233,6 +281,11 @@ def build_ga_step(
     compress = not int8 and (ServiceEnv.get().fp16_comm
                              or comm_dtype == "bfloat16")
     gens = {}
+    zero = zero_dp > 1 and zero_axis_name is not None
+    do_apply = apply_fn
+    if zero:
+        do_apply = _zero_apply(apply_fn, zero_dp, zero_axis_name,
+                               comm_dtype, compress)
 
     def maybe_compress(grads):
         if int8:
@@ -249,7 +302,7 @@ def build_ga_step(
             if compress or int8:
                 grads = tree_map(lambda g, p: g.to(p.dtype),
                                  maybe_compress(grads), params)
-            params, opt_state = apply_fn(params, opt_state, grads)
+            params, opt_state = do_apply(params, opt_state, grads)
             return loss, params, opt_state
         return step1
 
@@ -280,8 +333,50 @@ def build_ga_step(
         # 1/M in the accumulator's dtype, as JAX's weak typing rounds it.
         grads = tree_map(lambda g: g.mul_(torch.tensor(inv, dtype=g.dtype,
                                                        device=g.device)), acc)
-        # AG: the apply-gradients slice.
-        params, opt_state = apply_fn(params, opt_state, grads)
+        # AG: the apply-gradients slice (or the ZeRO RS -> apply -> AG).
+        params, opt_state = do_apply(params, opt_state, grads)
         return loss_sum * inv, params, opt_state
 
     return step
+
+
+def _zero_apply(apply_fn: Callable, zero_dp: int, group, comm_dtype: str,
+                compress: bool) -> Callable:
+    """The ZeRO-1 update over ``group`` (a process group or a
+    ``GroupTransport``): reduce-scatter -> ``apply_fn`` on this replica's
+    shards -> all-gather; the params tree is updated in place."""
+    from tepdist_tpu_torch.ops.seq_comm import GroupTransport, Transport
+    from tepdist_tpu_torch.parallel.performance_utils import (
+        param_wire_dtype)
+
+    comm = group if isinstance(group, Transport) else GroupTransport(group)
+    if comm.size != zero_dp:
+        raise ValueError(f"zero_dp={zero_dp} over a group of {comm.size}")
+    ag_bf16 = param_wire_dtype(comm_dtype) == "bfloat16"
+
+    def rs(g):
+        flat = zero_pad_flat(g, zero_dp)
+        if compress and flat.is_floating_point():
+            # The bf16 wire: the sum is reduced at bf16, the shard comes
+            # back in the gradient's dtype.
+            return comm.reduce_scatter_raw(
+                [flat.to(torch.bfloat16)])[0].to(g.dtype)
+        return comm.reduce_scatter_raw([flat])[0]
+
+    def apply(params, opt_state, grads):
+        rank = comm.ranks[0]
+        p_shards = zero_shard_params(params, zero_dp, rank)
+        g_shards = tree_map(rs, grads)
+        p_shards, opt_state = apply_fn(p_shards, opt_state, g_shards)
+
+        def ag(sh, p):
+            if ag_bf16 and sh.is_floating_point():
+                sh = sh.to(torch.bfloat16)
+            full = comm.all_gather_raw([sh])[0]
+            with torch.no_grad():
+                p.copy_(full[:p.numel()].view(p.shape).to(p.dtype))
+            return p
+
+        return tree_map(ag, p_shards, params), opt_state
+
+    return apply

@@ -8,7 +8,9 @@ checkpoints:
 - bf16 stored as its uint16 bits under the key ``<name>::bfloat16``;
 - shard entries ``<name>::shard{j}`` with a ``worker{i}.meta.json``
   sidecar giving each one's global index (written by the JAX package's
-  multi-controller and ZeRO saves; the port reads and assembles them);
+  multi-controller and ZeRO saves, and by the port's ZeRO pipeline, whose
+  optimizer-state leaves are :class:`ShardPieces`; each package reads and
+  assembles both);
 - ``manifest.json``, the ``max_to_keep`` queue, guarded by an ``fcntl``
   lock and owned by worker 0.
 
@@ -131,14 +133,34 @@ class AsyncSaveHandle:
         return self.path
 
 
+class ShardPieces:
+    """A value held as pieces by several replicas or ranks: this writer's
+    pieces as ``(piece id, bounds, tensor)``, the bounds one ``(start,
+    stop)`` per dim of ``global_shape`` (ids unique across the writers of
+    one value). Saved as shard entries; restored whole by assembly."""
+
+    def __init__(self, global_shape, dtype, pieces):
+        self.global_shape = tuple(global_shape)
+        self.shape = self.global_shape
+        self.dtype = dtype
+        self.pieces = list(pieces)
+
+
 class CheckpointUtil:
     def __init__(self, directory: str, max_to_keep: int = 5,
-                 own_manifest: bool = True):
+                 own_manifest: bool = True, shard_addressable: bool = False):
         """``own_manifest=False`` makes this writer shard-only: it never
-        touches the keep-queue or prunes (non-zero workers)."""
+        touches the keep-queue or prunes (non-zero workers).
+
+        ``shard_addressable=True`` writes a :class:`ShardPieces` value as
+        per-shard entries (+ the index sidecar): the ZeRO save path, whose
+        optimizer-state shards stay per-shard on disk, so
+        ``restore_resharded`` can land them on any data-parallel width
+        without the full array ever being built."""
         self.dir = directory
         self.max_to_keep = max_to_keep
         self.own_manifest = own_manifest
+        self.shard_addressable = shard_addressable
         self._async_lock = threading.Lock()
         os.makedirs(directory, exist_ok=True)
 
@@ -184,19 +206,33 @@ class CheckpointUtil:
         return np.array(value)
 
     def _stream_entries(self, variables: Dict[str, Any]
-                        ) -> Iterable[Tuple[str, Any]]:
-        """Yield (name, host copy) ONE VARIABLE AT A TIME: nothing keeps
-        the previous variable's host copy, so a save's peak host memory is
-        its largest variable, not the state."""
+                        ) -> Iterable[Tuple[str, Any, Dict[str, Any]]]:
+        """Yield (npz name, host copy, sidecar meta) ONE VARIABLE (or
+        shard) AT A TIME: nothing keeps the previous one's host copy, so a
+        save's peak host memory is its largest variable, not the state."""
         for k, v in variables.items():
-            yield k, self._fetch(v)
+            if not isinstance(v, ShardPieces):
+                yield k, self._fetch(v), {}
+                continue
+            if not self.shard_addressable:
+                raise ValueError(
+                    f"'{k}' is held as shards: save it with "
+                    "CheckpointUtil(shard_addressable=True)")
+            for j, bounds, piece in v.pieces:
+                key = f"{k}::shard{j}"
+                yield key, self._fetch(piece), {
+                    key: {"of": k, "index": [list(b) for b in bounds],
+                          "global_shape": list(v.global_shape)}}
 
     def _write_streaming(self, step_dir: str, worker_id: int,
-                         entries: Iterable[Tuple[str, Any]]) -> str:
+                         entries: Iterable[Tuple[str, Any, Dict]]) -> str:
         """Write an npz (zip-of-npy) INCREMENTALLY: each array goes to
         disk and is dropped before the next is fetched. np.load reads the
-        result as a normal npz."""
+        result as a normal npz. Shard entries get the index sidecar,
+        written before the npz is renamed into place."""
         final = os.path.join(step_dir, f"worker{worker_id}.npz")
+        mpath = os.path.join(step_dir, f"worker{worker_id}.meta.json")
+        shard_meta: Dict[str, Any] = {}
         # Thread-unique tmp: concurrent saves of the same (step, worker)
         # must not interleave one tmp file (the last os.replace wins).
         tmp = (f"{final}.tmp.{os.getpid()}.{threading.get_ident()}"
@@ -204,7 +240,8 @@ class CheckpointUtil:
         try:
             with zipfile.ZipFile(tmp, "w", zipfile.ZIP_STORED,
                                  allowZip64=True) as zf:
-                for name, host in entries:
+                for name, host, meta in entries:
+                    shard_meta.update(meta)
                     key, arr = _npy(name, host)
                     with zf.open(key + ".npy", "w", force_zip64=True) as f:
                         # NOT ascontiguousarray: it promotes 0-d to 1-d
@@ -213,6 +250,13 @@ class CheckpointUtil:
                             f, np.asarray(arr, order="C"),
                             allow_pickle=False)
                     del host, arr
+            if shard_meta:
+                # Meta first: an npz with ::shard keys but no sidecar
+                # would be skipped by restore's assembly.
+                def write_meta(t):
+                    with open(t, "w") as f:
+                        json.dump(shard_meta, f)
+                _atomic_write(mpath, write_meta)
             os.replace(tmp, final)
         except BaseException:
             with contextlib.suppress(OSError):

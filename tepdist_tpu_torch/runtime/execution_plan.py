@@ -66,6 +66,10 @@ def build_pipeline_task_dag(
     """
     S = prog.num_stages
     M = prog.num_micro_batches
+    # Stage modules captured for intra-stage replicas hold one replica's
+    # rows: a COMPUTE task's flops are the whole micro batch's, spread
+    # over its device group by the scheduler.
+    replicas = getattr(prog, "replicas", 1)
     dag = TaskDAG()
     maps = PipelinePlanMaps({}, {}, {}, {}, {}, {}, {})
 
@@ -88,8 +92,8 @@ def build_pipeline_task_dag(
             fwd = dag.add(
                 TaskType.COMPUTE, f"fwd_s{s}_m{m}", stage=s, micro=m,
                 device_group=stage_devices[s],
-                flops=sum(n.flops for n in prog.graph.nodes
-                          if prog.decomp.assignment[n.id] == s),
+                flops=replicas * sum(n.flops for n in prog.graph.nodes
+                                     if prog.decomp.assignment[n.id] == s),
                 out_bytes=float(sum(var_bytes(v) for v in mod.outvars)),
             )
             maps.fwd_tasks[(s, m)] = fwd.id
@@ -135,8 +139,9 @@ def build_pipeline_task_dag(
             bwd = dag.add(
                 TaskType.COMPUTE, f"bwd_s{s}_m{m}", stage=s, micro=m,
                 device_group=stage_devices[s],
-                flops=2.0 * sum(n.flops for n in prog.graph.nodes
-                                if prog.decomp.assignment[n.id] == s),
+                flops=2.0 * replicas * sum(
+                    n.flops for n in prog.graph.nodes
+                    if prog.decomp.assignment[n.id] == s),
                 out_bytes=float(sum(var_bytes(v) for v in mod.invars)),
             )
             maps.bwd_tasks[(s, m)] = bwd.id

@@ -464,21 +464,110 @@ def test_num_stages_env_picks_stages():
     assert plan.pipeline.num_micro_batches == 2
 
 
+@pytest.fixture(scope="module")
+def gloo_pool():
+    """4 ``gloo`` ranks serving the cases of ``test_torch_pipeline_dist``
+    (made on first use: two tests here need the group form)."""
+    from torch_gloo_pool import GlooPool
+
+    p = GlooPool("test_torch_pipeline_dist")
+    yield p
+    p.close()
+
+
 @pytest.mark.parametrize("kw", [
     dict(intra_stage_tp=2),
     dict(devices=["cpu"] * 4),
     dict(zero=True),
 ], ids=["stage_tp", "two_devices_a_stage", "zero"])
-def test_multi_device_stages_raise_13b(kw):
+def test_multi_device_stages_raise_13b(kw, gloo_pool):
+    """The three multi-device stages that raised before ROADMAP item 13b
+    construct and step now (the name records the item): stage x TP on 4
+    ranks (the group form, one rank a device), two devices a stage and
+    ZeRO over ``["cpu"] * 4`` in the one-process form. Two steps, the
+    losses against the JAX package's (TP: the PP x TP bound of
+    ``tests/test_pp_tp_depth.py``)."""
+    params, batch = _mlp4_data()
+    kw = dict(kw)
+    zero = kw.pop("zero", False)
+    placement = dict(kw, n_devices=4)
+    placement.pop("devices", None)
+    jl, _, _, _ = _jax_run(_jax_mlp4, params, batch, 2, 4, optax.sgd(0.1),
+                           **placement)
+    if "intra_stage_tp" in kw:
+        got = gloo_pool.run("pipeline", {
+            "model": "mlp4", "params": params, "batch": batch, "S": 2,
+            "M": 4, "opt": "sgd", "kw": kw})
+        assert (got["dp"], got["tp"]) == (1, 2)
+        np.testing.assert_allclose(got["losses"], jl, rtol=2e-4)
+        return
+    params_t, batch_t = _to_torch(params), _to_torch(batch)
+    prog = plan_pipeline(_torch_mlp4, 2, 4, params_t, *batch_t)
+    prog.zero = zero
+    exe = PipelineExecutable(prog, optimizer=sgd(0.1),
+                             devices=["cpu"] * 4)
+    assert exe.dp == 2 and exe.zero == zero
+    exe.load_variables(params_t)
+    tl = [exe.step(*batch_t) for _ in range(2)]
+    np.testing.assert_allclose(tl, jl, rtol=LOSS_RTOL)
+
+
+@pytest.mark.parametrize("zero", [False, True], ids=["plain", "zero"])
+def test_intra_stage_dp_matches_jax(zero):
+    """S=2 x dp=2 on ``["cpu"] * 4`` (each stage module captured at a
+    replica's half of the micro batch; the partial gradients summed once
+    at APPLY) against the JAX executable on 4 devices: losses, params and
+    the assembled optimizer state. With ZeRO each replica holds half of
+    every padded flat moment; held to the plain-GA trajectory (ROADMAP
+    C2), which the JAX executable's ZeRO also follows."""
+    params, batch = _mlp4_data()
+    jprog = jax_plan_pipeline(_jax_mlp4, 2, 4, params, *batch)
+    jexe = JaxPipelineExecutable(jprog, devices=jax.devices()[:4],
+                                 optimizer=optax.adam(1e-2))
+    jexe.load_variables(params)
+    jl = [jexe.step(*batch) for _ in range(2)]
+    params_t, batch_t = _to_torch(params), _to_torch(batch)
+    prog = plan_pipeline(_torch_mlp4, 2, 4, params_t, *batch_t)
+    prog.zero = zero
+    exe = PipelineExecutable(prog, devices=["cpu"] * 4,
+                             optimizer=adam(1e-2))
+    assert exe.prog.replicas == 2 and exe.zero == zero
+    # The replica's modules run 4 rows of the micro batch's 8.
+    assert exe.prog.graph.invars[-1].meta["val"].shape[0] == 4
+    exe.load_variables(params_t)
+    tl = [exe.step(*batch_t) for _ in range(2)]
+    np.testing.assert_allclose(tl, jl, rtol=LOSS_RTOL)
+    _assert_close_trees(exe.fetch_variables(),
+                        jax.device_get(jexe.fetch_variables()))
+    _assert_close_trees(exe.fetch_opt_state(),
+                        jax.device_get(jexe.fetch_opt_state()))
+    if zero:
+        mu = exe.opt_states[0][1]["mu"]
+        assert all(t.shape == (64 * 64 // 2,) for t in mu.values())
+
+
+def test_one_process_and_group_forms_agree(gloo_pool):
+    """The same scheduled tasks issued in the one-process form (every rank
+    in this process, ``["cpu"] * 4``) and in the group form (4 gloo ranks,
+    one each): equal losses (the replicas' sum in another order)."""
+    params, batch = _mlp4_data()
+    spec = {"model": "mlp4", "params": params, "batch": batch, "S": 2,
+            "M": 4, "opt": "adam"}
+    group = gloo_pool.run("forms_agree", spec)
+    tl = _torch_run(_torch_mlp4, params, batch, 2, 4, adam(1e-2),
+                    n_devices=4)[0]
+    np.testing.assert_allclose(group, tl, rtol=1e-6)
+
+
+def test_tp_in_one_process_raises():
+    """One process cannot hold the ranks of a TP group: a ValueError says
+    so, never an untiled run."""
     params, batch = _mlp4_data()
     prog = plan_pipeline(_torch_mlp4, 2, 2, _to_torch(params),
                          *_to_torch(batch))
-    kw = dict(kw)
-    if kw.pop("zero", False):
-        prog.zero = True
-    kw.setdefault("devices", ["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="13b"):
-        PipelineExecutable(prog, optimizer=sgd(0.1), **kw)
+    with pytest.raises(ValueError, match="one rank a device"):
+        PipelineExecutable(prog, optimizer=sgd(0.1), devices=["cpu"] * 4,
+                           intra_stage_tp=2)
 
 
 def test_default_devices_are_the_card():

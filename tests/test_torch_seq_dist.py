@@ -17,17 +17,13 @@ rewritten forward against the dense loss at 2e-5 (the reference's
 """
 
 import dataclasses
-import queue
-import socket
-import time
-import traceback
 
 import numpy as np
 import pytest
 import torch
-import torch.multiprocessing as mp
 
-WORLD = 4
+from torch_gloo_pool import WORLD, GlooPool
+
 torch.set_num_threads(2)
 
 
@@ -229,81 +225,9 @@ def case_rewritten_grads(rank, impl):
             "remats": remats, "seq_ops": seq_ops}
 
 
-CASES = {name[5:]: fn for name, fn in list(globals().items())
-         if name.startswith("case_")}
-
-
-# --------------------------------------------------------------------------
-# The pool
-# --------------------------------------------------------------------------
-
-def _worker(rank, port, inboxes, outbox):
-    import torch.distributed as dist
-
-    from tepdist_tpu_torch.core.service_env import ServiceEnv
-
-    torch.set_num_threads(1)
-    ServiceEnv.reset({"TPU_GENERATION": "cpu"})
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            rank=rank, world_size=WORLD)
-    while True:
-        item = inboxes[rank].get()
-        if item is None:
-            break
-        name, arg = item
-        try:
-            res = ("ok", CASES[name](rank, arg))
-        except Exception:  # noqa: BLE001 — reported to the parent
-            res = ("error", traceback.format_exc())
-        if rank == 0 or res[0] == "error":
-            outbox.put((rank, name, res))
-        dist.barrier()
-    dist.destroy_process_group()
-
-
-class _Pool:
-    def __init__(self):
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            port = s.getsockname()[1]
-        ctx = mp.get_context("spawn")
-        self.inboxes = [ctx.Queue() for _ in range(WORLD)]
-        self.outbox = ctx.Queue()
-        self.procs = [ctx.Process(target=_worker,
-                                  args=(r, port, self.inboxes, self.outbox),
-                                  daemon=True) for r in range(WORLD)]
-        for p in self.procs:
-            p.start()
-
-    def run(self, name, arg=None, timeout=240):
-        for q in self.inboxes:
-            q.put((name, arg))
-        try:
-            rank, got, (status, value) = self.outbox.get(timeout=timeout)
-        except queue.Empty:
-            raise AssertionError(f"case {name}: no answer in {timeout} s")
-        assert got == name
-        assert status == "ok", f"rank {rank}:\n{value}"
-        return value
-
-    def close(self):
-        for q in self.inboxes:
-            q.put(None)
-        deadline = time.monotonic() + 30
-        for p in self.procs:
-            while p.is_alive() and time.monotonic() < deadline:
-                try:
-                    self.outbox.get(timeout=0.1)
-                except queue.Empty:
-                    pass
-            p.join(timeout=1)
-            if p.is_alive():
-                p.kill()
-
-
 @pytest.fixture(scope="module")
 def pool():
-    p = _Pool()
+    p = GlooPool(__name__)
     yield p
     p.close()
 

@@ -328,22 +328,27 @@ def test_transformer_plan_splits_the_batch(family):
 # --------------------------------------------------------------------------
 
 def test_explore_records_the_excluded_kinds():
-    """The port's explorer searches the SPMD and sequence kinds and says
-    what it leaves out: the pipeline kind, which names its ROADMAP item.
-    A seq axis on a graph with no attention raises the reference's
-    guidance error."""
+    """The port's explorer says what a caller leaves out: without the
+    pipeline kind (``include_pipeline=False``, as the reference records a
+    restricted search) the SPMD winner and ``excluded_kinds ==
+    ["pipeline"]``; by default (the reference's) it searches every kind
+    and excludes none. A seq axis on a graph with no attention raises the
+    reference's guidance error."""
     params, x, y = _np_mlp()
     tp = {k: torch.tensor(v) for k, v in params.items()}
     best = texp.explore(_torch_mlp_loss, tp, torch.tensor(x),
-                        torch.tensor(y), n_devices=8)
+                        torch.tensor(y), n_devices=8,
+                        include_pipeline=False)
     assert best["kind"] == "spmd"
     assert best["excluded_kinds"] == ["pipeline"]
     assert best["report"]["excluded_kinds"] == ["pipeline"]
     assert {r["config"] for r in texp.candidate_summary(best["candidates"])
             } >= {"MeshTopology(data=8)", "MeshTopology(model=8)"}
-    with pytest.raises(NotImplementedError, match="item 13"):
-        texp.explore(_torch_mlp_loss, tp, torch.tensor(x), torch.tensor(y),
-                     n_devices=8, include_pipeline=True)
+    full = texp.explore(_torch_mlp_loss, tp, torch.tensor(x),
+                        torch.tensor(y), n_devices=8, num_micro_batches=2)
+    assert full["excluded_kinds"] == []
+    assert full["report"]["excluded_kinds"] == []
+    assert {c["kind"] for c in full["candidates"]} == {"spmd", "pipeline"}
     with pytest.raises(ValueError, match="no rewritable attention motif"):
         tap.plan_axes(_graphs("mlp")[1], tmesh.MeshTopology([("seq", 2)]))
     with pytest.raises(ValueError, match="no rewritable attention motif"):
@@ -362,10 +367,14 @@ def test_config_fits_devices_matches(row, n):
 
 
 def test_replan_for_fleet_reranks_the_recorded_candidates():
+    """The re-rank of a recorded SPMD search (``include_pipeline=False``:
+    a 2-stage pipeline cut would still fit the 4-device fleet this test
+    shrinks to, where no 8-device mesh does)."""
     params, x, y = _np_mlp()
     tp = {k: torch.tensor(v) for k, v in params.items()}
     best = texp.explore(_torch_mlp_loss, tp, torch.tensor(x),
-                        torch.tensor(y), n_devices=8)
+                        torch.tensor(y), n_devices=8,
+                        include_pipeline=False)
     report, _diff = texp.replan_for_fleet(best["report"], 16)
     assert report["n_devices"] == 16
     assert report["replanned_from_devices"] == 8

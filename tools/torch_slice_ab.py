@@ -4,15 +4,18 @@
 Run on a machine with one NVIDIA H100, from the repository root:
 
     python3 tools/torch_slice_ab.py --tree parent=DIR --tree change=. \\
-        [--order parent,change,change,parent] [--steps 8]
+        [--order parent,change,change,parent] [--steps 8] \\
+        [--recipe slice|pipeline]
 
 Each entry of ``--order`` runs the named tree's ``tepdist_tpu_torch`` in a
 fresh process, one after another, on chip_smoke.py's slice recipe (GPT-2
 1.5B at full width and depth, flash attention, full remat, loss chunk 512,
 batch 8 in 2 micro batches, seq 1024, ``adamw_bf16(1e-4)``): two warm-up
 steps, then ``--steps`` timed steps, with the time Python's garbage collector
-took during them. A tree builds its own kernels on first use, before any
-timed step. In a tree whose flash forward is also the
+took during them. ``--recipe pipeline`` runs chip_smoke.py's pipeline
+recipe instead: the same model at batch 48 x 1024 through
+``plan_training(num_stages=4, num_micro_batches=8, devices=[cuda:0] *
+4)``. A tree builds its own kernels on first use, before any timed step. In a tree whose flash forward is also the
 ``tepdist::flash_fwd`` custom op, the run also times the host cost of one
 forward call through the op and through the wrapper directly, at a small
 shape where the launch, not the kernel, sets the pace.
@@ -38,14 +41,23 @@ from tepdist_tpu_torch.ops import flash_attention as fa
 from tepdist_tpu_torch.optim import adamw_bf16
 from tepdist_tpu_torch.train import plan_training
 
-steps = int(sys.argv[1])
+steps, recipe = int(sys.argv[1]), sys.argv[2]
 torch.backends.cuda.matmul.allow_tf32 = False
 cfg = dataclasses.replace(gpt2.CONFIGS["1.5B"], attn="flash", remat=True,
                           loss_chunk=512)
-params = gpt2.stacked_init_params(cfg, seed=0, device="cuda")
-tokens = gpt2.fake_batch(cfg, 8, 1024, seed=0, device="cuda")
-plan = plan_training(lambda p, t: gpt2.loss_fn_stacked(p, t, cfg),
-                     adamw_bf16(1e-4), params, tokens, num_micro_batches=2)
+if recipe == "pipeline":
+    params = gpt2.init_params(cfg, seed=0, device="cuda")
+    tokens = gpt2.fake_batch(cfg, 48, 1024, seed=0, device="cuda")
+    plan = plan_training(lambda p, t: gpt2.loss_fn(p, t, cfg),
+                         adamw_bf16(1e-4), params, tokens, num_stages=4,
+                         num_micro_batches=8,
+                         devices=[torch.device("cuda", 0)] * 4)
+else:
+    params = gpt2.stacked_init_params(cfg, seed=0, device="cuda")
+    tokens = gpt2.fake_batch(cfg, 8, 1024, seed=0, device="cuda")
+    plan = plan_training(lambda p, t: gpt2.loss_fn_stacked(p, t, cfg),
+                         adamw_bf16(1e-4), params, tokens,
+                         num_micro_batches=2)
 for _ in range(2):
     plan.step(tokens)
 # Time spent in Python's garbage collector during the timed steps.
@@ -96,6 +108,8 @@ def main() -> int:
                     help="NAME=DIR, a checkout holding tepdist_tpu_torch/")
     ap.add_argument("--order", default="parent,change,change,parent")
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--recipe", choices=("slice", "pipeline"),
+                    default="slice")
     args = ap.parse_args()
     trees = dict(t.split("=", 1) for t in args.tree)
     order = args.order.split(",")
@@ -112,7 +126,8 @@ def main() -> int:
         root = os.path.abspath(trees[name])
         env = dict(os.environ, PYTHONPATH=root)
         proc = subprocess.run(
-            [sys.executable, "-c", CHILD, str(args.steps)], cwd=root,
+            [sys.executable, "-c", CHILD, str(args.steps), args.recipe],
+            cwd=root,
             env=env, capture_output=True, text=True, timeout=900)
         if proc.returncode:
             sys.stderr.write(proc.stderr[-4000:])
@@ -124,6 +139,7 @@ def main() -> int:
         print(json.dumps(rec), flush=True)
         medians.setdefault(name, []).extend(rec["step_seconds"])
     print(json.dumps({"nvidia_smi": smi, "order": order,
+                      "recipe": args.recipe,
                       "median_step_seconds": {
                           n: statistics.median(s)
                           for n, s in medians.items()}}), flush=True)
