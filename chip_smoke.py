@@ -51,6 +51,17 @@ calls (``plan_training`` + ``plan.step``, ``plan.save``/``restore``,
    steps with losses within SPMD_STEP_LOSS_RTOL of the eager plan's, the
    sixth below the first, every kernel launched; step seconds, peak
    memory and the involuntary-remat count;
+5d2. rpc: the same recipe through the service: ``TepdistSession.
+   compile_training`` (capture on fake tensors, the graph's nodes and
+   bytes, encode and decode seconds, the state's literals' bytes and
+   GB/s) -> ``BuildExecutionPlan`` (planner seconds) on a
+   ``TepdistServicer`` holding the card, reached through ``inproc:`` ->
+   6 ``ExecutePlan`` steps (seconds beside spmd_step's, the servicer's
+   host time outside the lowered step, losses within SPMD_STEP_LOSS_RTOL
+   of the eager plan's, the sixth below the first, launches 2LM / LM / LM
+   a step, peak memory); a ``DoRemoteSave`` after step 3 and a
+   ``DoRemoteRestore`` into the same servicer, whose step 4 repeats its
+   loss bit for bit;
 5e. pipeline: the same model, recipe, seed and batches through the task-
    graph pipeline, ``plan_training(num_stages=4, num_micro_batches=8,
    devices=[cuda:0] * 4)``: the forward loss captured at micro-batch
@@ -1016,9 +1027,172 @@ def phase_spmd_step(micro_batches: int, eager_losses):
             raise SystemExit(f"chip_smoke: a flash kernel was not launched "
                              f"through the lowering {launches}")
         del plan
-        return launches
+        return launches, seconds
     finally:
         dist.destroy_process_group()
+        torch.cuda.empty_cache()
+
+
+# rpc phase: the spmd_step recipe through the service: a TepdistSession
+# against a TepdistServicer on the card, reached through an ``inproc:``
+# address (the card's machine has no grpcio). A checkpoint after step
+# RPC_SAVE_AT, restored into the same servicer; the next step's loss must
+# repeat bit for bit.
+RPC_SAVE_AT = 3
+
+
+def phase_rpc(micro_batches: int, eager_losses, spmd_seconds):
+    """GPT-2 1.5B at full width and depth, the plan phase's recipe, M,
+    seed and batches, trained through ``TepdistSession.compile_training``
+    -> ``BuildExecutionPlan`` -> six ``ExecutePlan`` steps on a servicer
+    that holds the card (``mesh_axes=[["data", 1]]``). Prints the capture
+    and serde costs, the state transfer's bytes and GB/s, the planner's
+    seconds, each step's seconds beside spmd_step's and the servicer's
+    host time outside the lowered step, the launches and the peak memory;
+    then a remote save after step 3 and a remote restore into the same
+    servicer, whose next step repeats step 4's loss bit for bit. Returns
+    the kernels' launches over the six steps."""
+    import torch
+    import torch.distributed as dist
+
+    from tepdist_tpu_torch.client.session import TepdistSession
+    from tepdist_tpu_torch.models import gpt2
+    from tepdist_tpu_torch.ops import flash_attention as fa
+    from tepdist_tpu_torch.optim import adamw_bf16, optimizer_spec
+    from tepdist_tpu_torch.rpc import inproc
+    from tepdist_tpu_torch.rpc.server import TepdistServicer
+
+    torch.cuda.empty_cache()
+    servicer = TepdistServicer(["cuda"])
+    servicer.ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_rpc_")
+    address = "inproc:1"
+    inproc.register_servicer(address, servicer)
+    # The servicer's host costs: the wire graph's decode, and each
+    # ExecutePlan handler's time beside its lowered step (synced).
+    timings = {"decode": [], "handler": [], "run": []}
+    graph_of = servicer._graph
+
+    def timed_graph(blob):
+        t0 = time.perf_counter()
+        gm = graph_of(blob)
+        timings["decode"].append(time.perf_counter() - t0)
+        return gm
+
+    servicer._graph = timed_graph
+    execute = servicer.ExecutePlan
+
+    def timed_execute(request, context=None):
+        t0 = time.perf_counter()
+        resp = execute(request, context)
+        timings["handler"].append(time.perf_counter() - t0)
+        return resp
+
+    servicer.ExecutePlan = timed_execute
+    try:
+        cfg = _config(48)
+        L = cfg.n_layer
+        params = gpt2.stacked_init_params(cfg, seed=0, device="cuda")
+        tokens = gpt2.fake_batch(cfg, PLAN_BATCH, SEQ, seed=0,
+                                 device="cuda")
+        sess = TepdistSession(address, mesh_axes=[("data", 1)])
+        t0 = time.perf_counter()
+        summary = sess.compile_training(
+            lambda p, t: gpt2.loss_fn_stacked(p, t, cfg), adamw_bf16(1e-4),
+            params, tokens, num_micro_batches=micro_batches,
+            optimizer_spec=optimizer_spec("adamw_bf16", learning_rate=1e-4))
+        compile_s = time.perf_counter() - t0
+        del params
+        stats = dict(sess.compile_stats)
+        plan = servicer.plan_cache.resolve(sess.handle)
+        run_of = plan.run
+
+        def timed_run(args):
+            t0 = time.perf_counter()
+            outs = run_of(args)
+            torch.cuda.synchronize()
+            timings["run"].append(time.perf_counter() - t0)
+            return outs
+
+        plan.run = timed_run
+        want = {"flash_fwd": 2 * L * micro_batches,
+                "flash_dq": L * micro_batches,
+                "flash_dkv": L * micro_batches}
+        torch.cuda.reset_peak_memory_stats()
+        losses, seconds, per_step = [], [], []
+        fa.reset_launch_counts()
+        save_s = None
+        for k in range(STEPS):
+            before = dict(fa.launch_counts)
+            t0 = time.perf_counter()
+            losses.append(sess.run(tokens))
+            seconds.append(time.perf_counter() - t0)
+            per_step.append({n: fa.launch_counts[n] - before[n]
+                             for n in want})
+            if k + 1 == RPC_SAVE_AT:
+                t0 = time.perf_counter()
+                sess.save()
+                save_s = time.perf_counter() - t0
+        launches = dict(fa.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        sess.restore()
+        restore_s = time.perf_counter() - t0
+        again = sess.run(tokens)
+        sess.close()
+        outside = [h - r for h, r in zip(timings["handler"],
+                                         timings["run"])]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, eager_losses)]
+        steady = seconds[1:]
+        emit({"phase": "rpc", "model": "GPT-2 1.5B", "n_layer": L,
+              "batch": PLAN_BATCH, "seq": SEQ, "cut": "none",
+              "transport": address, "device": str(servicer.device),
+              "micro_batches": micro_batches,
+              "capture_seconds": stats["capture_seconds"],
+              "graph_nodes": stats["graph_nodes"],
+              "graph_bytes": stats["module_bytes"],
+              "encode_seconds": stats["encode_seconds"],
+              "decode_seconds": timings["decode"],
+              "state_bytes": stats["transfer_bytes"],
+              "transfer_seconds": stats["transfer_seconds"],
+              "transfer_gb_per_s": (stats["transfer_bytes"]
+                                    / stats["transfer_seconds"] / 1e9),
+              "planner_seconds": summary["planner_seconds"],
+              "compile_training_seconds": compile_s,
+              "losses": losses, "eager_losses": list(eager_losses),
+              "loss_rel_diff": rel, "loss_rtol": SPMD_STEP_LOSS_RTOL,
+              "step_seconds": seconds,
+              "spmd_step_seconds": list(spmd_seconds),
+              "tokens_per_s": PLAN_BATCH * SEQ * len(steady) / sum(steady),
+              "handler_seconds": timings["handler"],
+              "lowered_step_seconds": timings["run"],
+              "host_seconds_outside_step": outside,
+              "max_memory_allocated_bytes": peak,
+              "launches_per_step": per_step, "expected_per_step": want,
+              "save_after_step": RPC_SAVE_AT, "save_seconds": save_s,
+              "restore_seconds": restore_s,
+              "step4_loss": losses[RPC_SAVE_AT],
+              "step4_loss_after_restore": again})
+        if not all(math.isfinite(x) for x in losses):
+            raise SystemExit(f"chip_smoke: non-finite loss {losses}")
+        if max(rel) > SPMD_STEP_LOSS_RTOL:
+            raise SystemExit(f"chip_smoke: losses through the service "
+                             f"{losses} differ from the eager plan's "
+                             f"{eager_losses}")
+        if not losses[-1] < losses[0]:
+            raise SystemExit(f"chip_smoke: loss did not fall {losses}")
+        if any(step != want for step in per_step):
+            raise SystemExit(f"chip_smoke: launches a step {per_step} "
+                             f"through the service, expected {want}")
+        if again != losses[RPC_SAVE_AT]:
+            raise SystemExit(f"chip_smoke: step {RPC_SAVE_AT + 1} after the "
+                             f"remote restore gave {again}, before "
+                             f"{losses[RPC_SAVE_AT]}")
+        return launches
+    finally:
+        inproc.unregister_servicer(address)
+        shutil.rmtree(servicer.ckpt_dir, ignore_errors=True)
+        if dist.is_initialized():
+            dist.destroy_process_group()
         torch.cuda.empty_cache()
 
 
@@ -2745,8 +2919,12 @@ def main() -> int:
     mark("plan")
     phase_spmd_plan()
     mark("spmd_plan")
-    spmd_launches = phase_spmd_step(PLAN_BATCH // plan_mb, plan_losses)
+    spmd_launches, spmd_seconds = phase_spmd_step(PLAN_BATCH // plan_mb,
+                                                  plan_losses)
     mark("spmd_step")
+    rpc_launches = phase_rpc(PLAN_BATCH // plan_mb, plan_losses,
+                             spmd_seconds)
+    mark("rpc")
     pipe_launches, pipe_losses = phase_pipeline(plan_losses,
                                                 PLAN_BATCH // plan_mb)
     # The pipeline path's kernels at its micro batch.
@@ -2815,6 +2993,9 @@ def main() -> int:
             (f"[{plan_mb}*25, 1024, 64] bf16 causal (GPT-2 1.5B "
              f"spmd_step phase: the lowered step on DTensors)", plan_case,
              spmd_launches),
+            (f"[{plan_mb}*25, 1024, 64] bf16 causal (GPT-2 1.5B rpc "
+             f"phase: TepdistSession -> ExecutePlan on a servicer)",
+             plan_case, rpc_launches),
             (f"[{pipe_mb}*25, 1024, 64] bf16 causal (GPT-2 1.5B pipeline "
              f"phase: 4 stages, M = {PIPE_MICRO})", pipe_case,
              pipe_launches),

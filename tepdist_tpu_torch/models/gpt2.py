@@ -161,6 +161,7 @@ def _attn_out(o: torch.Tensor) -> torch.Tensor:
     return o.clone()
 
 
+_attn_out.register_fake(lambda o: torch.empty_like(o))
 _attn_out.register_autograd(lambda ctx, g: g)
 _ATTN_OUT_OP = torch.ops.tepdist.attn_out.default
 

@@ -520,6 +520,32 @@ def auto_parallel(
     if seq_size > 1:
         graph = _rewrite_seq_motifs(
             graph, seq_size, tree_leaves((example_args, example_kwargs)))
+    return plan_graph(graph, topology, in_tree, out_tree,
+                      annotations=annotations, mode=mode,
+                      state_alias=state_alias, var_mem_limit=var_mem_limit,
+                      zero_invars=zero_invars)
+
+
+def plan_graph(
+    graph: FxGraph,
+    topology: MeshTopology,
+    in_tree: Any = None,
+    out_tree: Any = None,
+    annotations: Optional[Dict[int, Dict[str, DimStrategy]]] = None,
+    mode: Optional[str] = None,
+    state_alias: Optional[Dict[int, int]] = None,
+    var_mem_limit: Optional[int] = None,
+    zero_invars: Optional[Sequence[int]] = None,
+) -> ParallelPlan:
+    """The planning half of :func:`auto_parallel` on a captured graph (the
+    RPC server's, from the wire): the strategies over ``topology`` (rank 0
+    plans and broadcasts), the state alignment, affinity and ZeRO passes,
+    and the lowering."""
+    env = ServiceEnv.get()
+    if mode is None:
+        mode = "rule" if env.rule_mode else "cost"
+    if env.ignore_annotation:
+        annotations = None
     if var_mem_limit is None and env.var_mem_limit > 0:
         var_mem_limit = env.var_mem_limit
 

@@ -67,8 +67,11 @@ _FLASH_SHARDING_REGISTERED = False
 def register_flash_sharding() -> None:
     """Register the flash ops' sharding rule with DTensor (the
     ``strategy_utils`` rule): every tensor operand and output either
-    replicated or split on dim 0 (batch x head), on each mesh axis.
-    Without it DTensor cannot run the custom ops at all. Idempotent."""
+    replicated or split on dim 0 (batch x head), on each mesh axis; split
+    only where the mesh divides dim 0 (25 heads of one row over 2 ranks
+    would split unevenly, and the backward's view back to the hidden dim
+    cannot take an uneven split: ROADMAP C8). Without it DTensor cannot
+    run the custom ops at all. Idempotent."""
     global _FLASH_SHARDING_REGISTERED
     if _FLASH_SHARDING_REGISTERED:
         return
@@ -80,10 +83,13 @@ def register_flash_sharding() -> None:
     ops = torch.ops.tepdist
 
     def rule(n_in: int, n_out: int):
-        def fn(*args):
-            n_scalar = len(args) - n_in
+        def fn(q, *args):
+            n_scalar = len(args) + 1 - n_in
+            options = [Replicate()]
+            if q.shape[0] % q.mesh.size() == 0:
+                options.append(Shard(0))
             return [([p] * n_out, [p] * n_in + [None] * n_scalar)
-                    for p in (Replicate(), Shard(0))]
+                    for p in options]
         return fn
 
     register_sharding(ops.flash_fwd.default)(rule(3, 2))

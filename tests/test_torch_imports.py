@@ -2,8 +2,10 @@
 ml_dtypes (the card's machine has none): every module of
 tepdist_tpu_torch, and chip_smoke.py, imported in a fresh interpreter (the
 pytest process has jax loaded already); the telemetry, serving and graph
-packages each imported alone; and each module of the planner imported
-alone."""
+packages each imported alone; and each module of the planner and of the
+service (the wire, the server, the client and the session) imported
+alone. No module imports grpc when it is imported (the card's machine has
+no grpcio): only the functions that open a channel or a server do."""
 
 import os
 import subprocess
@@ -26,8 +28,9 @@ for name in names:
 import chip_smoke
 import torch, torch.nn.functional  # what chip_smoke's phases import
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith(("jax.", "jaxlib", "tepdist_tpu."))
-             or m in ("tepdist_tpu", "ml_dtypes", "optax"))
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "tepdist_tpu.",
+                                            "grpc."))
+             or m in ("tepdist_tpu", "ml_dtypes", "optax", "grpc"))
 print(len(names), bad)
 sys.exit(1 if bad or len(names) < 24 else 0)
 """
@@ -48,8 +51,9 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith(("jax.", "jaxlib", "tepdist_tpu."))
-             or m in ("tepdist_tpu", "ml_dtypes", "optax"))
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "tepdist_tpu.",
+                                            "grpc."))
+             or m in ("tepdist_tpu", "ml_dtypes", "optax", "grpc"))
 print(len(names), bad)
 sys.exit(1 if bad or not names else 0)
 """
@@ -57,7 +61,9 @@ sys.exit(1 if bad or not names else 0)
 
 @pytest.mark.parametrize("package", ["tepdist_tpu_torch.telemetry",
                                      "tepdist_tpu_torch.serving",
-                                     "tepdist_tpu_torch.graph"])
+                                     "tepdist_tpu_torch.graph",
+                                     "tepdist_tpu_torch.rpc",
+                                     "tepdist_tpu_torch.client"])
 def test_subpackage_imports_no_jax(package):
     """Each of the port's telemetry, serving and graph packages, with
     every one of its modules, imported alone in a fresh interpreter."""
@@ -72,8 +78,9 @@ _MODULE_PROBE = """
 import importlib, sys
 importlib.import_module(sys.argv[1])
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith(("jax.", "jaxlib", "tepdist_tpu."))
-             or m in ("tepdist_tpu", "ml_dtypes", "optax"))
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "tepdist_tpu.",
+                                            "grpc."))
+             or m in ("tepdist_tpu", "ml_dtypes", "optax", "grpc"))
 print(bad)
 sys.exit(1 if bad else 0)
 """
@@ -94,10 +101,17 @@ sys.exit(1 if bad else 0)
     "tepdist_tpu_torch.parallel.exploration",
     "tepdist_tpu_torch.parallel.quantize",
     "tepdist_tpu_torch.parallel.lowering_check",
-    "tepdist_tpu_torch.runtime.initializers"])
+    "tepdist_tpu_torch.runtime.initializers",
+    "tepdist_tpu_torch.core.cluster_spec",
+    "tepdist_tpu_torch.rpc.protocol", "tepdist_tpu_torch.rpc.retry",
+    "tepdist_tpu_torch.rpc.fx_serde", "tepdist_tpu_torch.rpc.inproc",
+    "tepdist_tpu_torch.rpc.client", "tepdist_tpu_torch.rpc.worker_plan",
+    "tepdist_tpu_torch.rpc.server", "tepdist_tpu_torch.runtime.health",
+    "tepdist_tpu_torch.client.annotations",
+    "tepdist_tpu_torch.client.session"])
 def test_planner_module_imports_no_jax(module):
-    """Each module of the planner (both parts) imported alone in a fresh
-    interpreter."""
+    """Each module of the planner (both parts) and of the service imported
+    alone in a fresh interpreter."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _MODULE_PROBE, module],
                          cwd=ROOT, env=env, capture_output=True, text=True,

@@ -182,6 +182,42 @@ def case_tp_over_nccl(rank, spec):
     return None
 
 
+def case_flash_uneven_split(rank, spec):
+    """The flash ops on a 2-rank ``model`` mesh with q, k, v of 25
+    batch-heads split on the sequence dim (the split stage x TP planned at
+    GPT-2 1.5B width and M = 8, where ROADMAP C8 hung): loss and
+    gradients through the attention output's view back to the hidden dim,
+    against the same function on whole tensors."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from tepdist_tpu_torch.parallel.spmd_transform import (
+        register_flash_sharding)
+
+    register_flash_sharding()
+    mesh = init_device_mesh("cpu", (2, 2),
+                            mesh_dim_names=("pair", "model"))["model"]
+    BH, T, D = spec
+    gen = torch.Generator().manual_seed(0)
+    whole = [torch.randn(BH, T, D, generator=gen) for _ in range(3)]
+
+    def loss(q, k, v):
+        o, _ = torch.ops.tepdist.flash_fwd(q, k, v, True, D ** -0.5, BH)
+        hidden = o.view(1, BH, T, D).transpose(1, 2).reshape(1, T, BH * D)
+        return (hidden * hidden).sum()
+
+    ref = [x.clone().requires_grad_() for x in whole]
+    want = loss(*ref)
+    want.backward()
+    split = [distribute_tensor(x, mesh, [Shard(1)]).requires_grad_()
+             for x in whole]
+    got = loss(*split)
+    got.full_tensor().backward()
+    return {"loss": (float(got.full_tensor()), float(want)),
+            "grads": [(g.grad.full_tensor().numpy(), r.grad.numpy())
+                      for g, r in zip(split, ref)]}
+
+
 def case_zero_and_plain(rank, spec):
     return {"zero": _run(dict(spec, zero=True)),
             "plain": _run(dict(spec, zero=False))}
@@ -435,6 +471,19 @@ def test_stage_tp_over_nccl_raises(pool):
                                     "batch": batch, "S": 2, "M": 4,
                                     "opt": "sgd"})
     assert msg is not None and "C8" in msg, msg
+
+
+def test_flash_split_only_where_it_divides(pool):
+    """The repair of ROADMAP C8: the flash ops' DTensor rule splits batch x
+    head only where the mesh divides it. At 25 batch-heads over 2 ranks
+    the rule used to split them unevenly, and the backward's view back to
+    the hidden dim raised on the first stage while the other stage waited
+    for it (a hang over NCCL). Loss and gradients equal the whole-tensor
+    function's."""
+    got = pool.run("flash_uneven_split", (25, 64, 16))
+    np.testing.assert_allclose(*got["loss"], rtol=1e-5)
+    for g, w in got["grads"]:
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5)
 
 
 def test_zero_tracks_plain_pipeline(pool):

@@ -18,14 +18,18 @@ batch 48 x 1024, M = 8) and trains ``--steps`` steps through
 - ``tp`` (named only): 2 stages x ``intra_stage_tp=2`` at
   ``--tp-layers`` deep (each stage a DTensor program on its ``model``
   sub-mesh; its planner's ILP on a 24-layer stage would take the call's
-  time). Over NCCL the executor refuses it with a ``ValueError`` (its
-  first step hangs across cards, ROADMAP C8); ``--device cpu`` runs it
-  over gloo.
+  time). Over NCCL the executor refuses it with a ``ValueError`` (ROADMAP
+  C8); ``--device cpu`` runs it over gloo.
 
-Each rank's losses are held to a one-card reference of the same recipe
-and depth, run first by the parent process on card 0 with no process
-group (``chip_smoke.py``'s ``pipeline`` phase: 4 stages over ``[cuda:0] *
-4``), at ``PIPELINE_LOSS_RTOL``. For each case rank 0 prints
+A rank that raises prints its traceback and leaves at once: over NCCL its
+peers would wait for it, and so would ``destroy_process_group``, which
+hid the cause of a failure as a hang (ROADMAP C8).
+
+Each rank's losses (and their largest relative difference) are held to
+a one-card reference of the same recipe and depth, run first by the
+parent process on card 0 with no process group (``chip_smoke.py``'s
+``pipeline`` phase: 4 stages over ``[cuda:0] * 4``), at
+``PIPELINE_LOSS_RTOL``. For each case rank 0 prints
 one JSON line as it finishes (also appended to
 ``chiprun_out/torch_pipeline_dist.jsonl``): the losses, the predicted
 makespan and bubble for the 4 cards (``h100`` entry) beside the measured
@@ -48,6 +52,7 @@ import os
 import socket
 import sys
 import time
+import traceback
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -216,6 +221,7 @@ def _worker(rank, world, port, args, refs):
             per_rank = [None] * world
             dist.all_gather_object(per_rank, {
                 "losses": losses, "ok": ok, "coord": exe._coord,
+                "max_loss_rel_diff": max(rel),
                 "peak_bytes": peak, "step_seconds": seconds})
             if rank == 0:
                 steady = seconds[1:] or seconds
@@ -244,6 +250,10 @@ def _worker(rank, world, port, args, refs):
         if failed:
             raise SystemExit(f"torch_pipeline_dist: {failed} disagree with "
                              "the one-card reference")
+    except BaseException:
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
     finally:
         dist.destroy_process_group()
 
