@@ -886,10 +886,6 @@ def phase_spmd_plan():
           "pipeline_search_seconds": phases.get("pipeline_ms", 0.0) / 1e3,
           "seq_candidates": seq,
           "pipeline_candidates": pipelines,
-          # Stage x TP cuts are not proposed on a card (ROADMAP C8).
-          "stage_tp_pruned": sorted(
-              p["config"] for p in (best.get("report") or {}).get(
-                  "prunes", []) if "C8" in p.get("message", "")),
           "candidates_per_topology": per_topology,
           "excluded_kinds": best.get("excluded_kinds"),
           "winner": {"kind": best["kind"],
@@ -1371,7 +1367,204 @@ def phase_pipeline(eager_losses, eager_micro: int):
     _profile_step("GPT-2 1.5B pipeline", lambda: plan.step(tokens), median)
     del plan, exe
     torch.cuda.empty_cache()
-    return launches, losses
+    return launches, losses, prog
+
+
+# fleet phase: the pipeline phase's program (GPT-2 1.5B, full width and
+# depth, its stage cut, M = 8) through the fleet pipeline: a
+# DistributedPipelineSession over FLEET_WORKERS in-process workers that
+# all hold card 0 (stages s % 2: two a worker), activations worker to
+# worker as RPC raw-data pushes. FLEET_STEPS steps held to the pipeline
+# phase's losses (bit for bit is the aim; the check is its rtol); then a
+# save, one more step (the unfaulted loss), a restore, and the same step
+# again with a planted transient fault on worker 1 (FLEET_FAULT, armed
+# until the master's fence): recovered by _recover_step with no rollback,
+# its loss equal to the unfaulted step's. Budget: about 100 s.
+FLEET_WORKERS, FLEET_STEPS = 2, 3
+FLEET_FAULT = "server_fault:p=1,verb=ExecuteStepSlice,ti=1"
+FLEET_VERBS = ("TransferModuleAndDefCtx", "DispatchPlan", "ExecuteStepSlice",
+               "TransferHostRawData", "TransferToServerHost", "AbortStep",
+               "DoRemoteSave", "DoRemoteRestore")
+
+
+def _time_verbs(servicer, verbs, table):
+    """Wrap ``servicer``'s handlers to record each call's host wall (ms)
+    under its verb in ``table``."""
+    for verb in verbs:
+        fn = getattr(servicer, verb)
+
+        def timed(request, context=None, fn=fn, verb=verb):
+            t0 = time.perf_counter()
+            try:
+                return fn(request, context)
+            finally:
+                table.setdefault(verb, []).append(
+                    (time.perf_counter() - t0) * 1e3)
+        setattr(servicer, verb, timed)
+
+
+def _arm_until_fence(servicer, spec) -> None:
+    """Arm the fault spec until ``servicer`` sees the master's fence (a
+    plain AbortStep): a transient fault that outlasts the transport's own
+    retries, so the master's step-level recovery is what meets it."""
+    from tepdist_tpu_torch.rpc import protocol
+    from tepdist_tpu_torch.runtime import faults
+
+    faults.configure(spec)
+    abort = servicer.AbortStep
+
+    def fenced(request, context=None):
+        if not protocol.unpack(request)[0].get("reset"):
+            faults.configure(None)
+        return abort(request, context)
+
+    servicer.AbortStep = fenced
+
+
+def phase_fleet(prog, pipe_losses):
+    """GPT-2 1.5B through ``DistributedPipelineSession`` over in-process
+    workers on card 0 (module comment at FLEET_*). Returns the kernels'
+    launches over the FLEET_STEPS steps."""
+    import torch
+
+    from tepdist_tpu_torch.models import gpt2
+    from tepdist_tpu_torch.ops import flash_attention as fa
+    from tepdist_tpu_torch.optim import adamw_bf16
+    from tepdist_tpu_torch.rpc.inproc import (close_inproc_cluster,
+                                              make_inproc_cluster)
+    from tepdist_tpu_torch.runtime import faults
+    from tepdist_tpu_torch.runtime.distributed_executor import (
+        DistributedPipelineSession)
+    from tepdist_tpu_torch.telemetry import metrics
+
+    torch.cuda.empty_cache()
+    cfg = _config(48)
+    L, M = cfg.n_layer, prog.num_micro_batches
+    # The raw-data push (the reference fleet's hop); tickets would make
+    # each hop a device copy between the in-process workers.
+    knob = os.environ.get("TEPDIST_DEVICE_TRANSFER")
+    os.environ["TEPDIST_DEVICE_TRANSFER"] = "0"
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    old_ckpt = os.environ.get("TEPDIST_CKPT_DIR")
+    os.environ["TEPDIST_CKPT_DIR"] = ckpt
+    cluster, servicers = make_inproc_cluster(
+        FLEET_WORKERS, devices=[torch.device("cuda", 0)])
+    handler_ms = {}
+    for sv in servicers:
+        _time_verbs(sv, FLEET_VERBS, handler_ms)
+    params = gpt2.init_params(cfg, seed=0, device="cuda")
+    tokens = gpt2.fake_batch(cfg, PLAN_BATCH, SEQ, seed=0, device="cuda")
+    want = {"flash_fwd": 2 * L * M, "flash_dq": L * M, "flash_dkv": L * M}
+    metrics().reset()
+    sess = None
+    try:
+        t0 = time.perf_counter()
+        sess = DistributedPipelineSession(prog, cluster,
+                                          optimizer=adamw_bf16(1e-4))
+        ship_s = time.perf_counter() - t0
+        sess.load_variables(params)
+        setup_s = time.perf_counter() - t0
+        del params
+        torch.cuda.reset_peak_memory_stats()
+        losses, seconds, per_step = [], [], []
+        fa.reset_launch_counts()
+        for _ in range(FLEET_STEPS):
+            before = dict(fa.launch_counts)
+            t1 = time.perf_counter()
+            losses.append(sess.step(tokens))
+            seconds.append(time.perf_counter() - t1)
+            per_step.append({n: fa.launch_counts[n] - before[n]
+                             for n in want})
+        launches = dict(fa.launch_counts)
+        pushes = {sv.task_index: (sv.worker_plan.push_bytes,
+                                  sv.worker_plan.push_seconds)
+                  for sv in servicers}
+        step_handler = {v: _quantiles(ms) for v, ms in handler_ms.items()}
+        peak = torch.cuda.max_memory_allocated()
+        t1 = time.perf_counter()
+        sess.save()
+        save_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        clean = sess.step(tokens)
+        clean_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        sess.restore(FLEET_STEPS)
+        restore_s = time.perf_counter() - t1
+        before = metrics().snapshot()["counters"]
+        _arm_until_fence(servicers[1], FLEET_FAULT)
+        t1 = time.perf_counter()
+        faulted = sess.step(tokens)
+        faulted_s = time.perf_counter() - t1
+        faults.configure(None)
+        after = metrics().snapshot()["counters"]
+    finally:
+        faults.configure(None)
+        if sess is not None:
+            sess.close()
+        close_inproc_cluster(cluster)
+        shutil.rmtree(ckpt, ignore_errors=True)
+        for key, val in (("TEPDIST_DEVICE_TRANSFER", knob),
+                         ("TEPDIST_CKPT_DIR", old_ckpt)):
+            if val is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = val
+
+    def delta(k):
+        return after.get(k, 0) - before.get(k, 0)
+
+    ref = list(pipe_losses[:FLEET_STEPS + 1])
+    got = losses + [faulted]
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, ref)]
+    steady = seconds[1:]
+    emit({"phase": "fleet", "model": "GPT-2 1.5B", "n_layer": L,
+          "n_embd": cfg.n_embd, "batch": PLAN_BATCH, "seq": SEQ,
+          "micro_batches": M, "num_stages": prog.num_stages,
+          "workers": FLEET_WORKERS,
+          "devices": "every worker on cuda:0 (inproc: addresses)",
+          "stage_worker": sess.stage_worker if sess else None,
+          "transport": "RPC raw-data push (TEPDIST_DEVICE_TRANSFER=0)",
+          "ship_seconds": ship_s, "setup_seconds": setup_s,
+          "losses": losses, "pipeline_losses": ref,
+          "bit_for_bit_with_pipeline": losses == ref[:FLEET_STEPS],
+          "loss_rel_diff": rel, "loss_rtol": PIPELINE_LOSS_RTOL,
+          "step_seconds": seconds,
+          "pipeline_phase_step_seconds_note": "see the pipeline line",
+          "tokens_per_s": PLAN_BATCH * SEQ * len(steady) / sum(steady),
+          "max_memory_allocated_bytes": peak,
+          "launches_per_step": per_step, "expected_per_step": want,
+          "push_bytes_and_seconds": pushes,
+          "push_gb_per_s": {ti: (b / s_ / 1e9 if s_ else None)
+                            for ti, (b, s_) in pushes.items()},
+          "handler_ms_by_verb": step_handler,
+          "save_seconds": save_s, "restore_seconds": restore_s,
+          "unfaulted_step": {"loss": clean, "seconds": clean_s},
+          "faulted_step": {"fault": FLEET_FAULT, "loss": faulted,
+                           "seconds": faulted_s,
+                           "faults_injected":
+                               delta("fault_injected:server_fault"),
+                           "step_retries": delta("step_retries"),
+                           "elastic_redispatch":
+                               delta("elastic_redispatch"),
+                           "checkpoint_rollback_steps":
+                               delta("checkpoint_rollback_steps")}})
+    if not all(math.isfinite(x) for x in got):
+        raise SystemExit(f"chip_smoke: fleet non-finite loss {got}")
+    if max(rel) > PIPELINE_LOSS_RTOL:
+        raise SystemExit(f"chip_smoke: fleet losses {got} differ from the "
+                         f"pipeline phase's {ref}")
+    if faulted != clean:
+        raise SystemExit(f"chip_smoke: the faulted step's loss {faulted} "
+                         f"differs from the unfaulted step's {clean}")
+    if (delta("step_retries") != 1 or not delta("fault_injected:server_fault")
+            or delta("elastic_redispatch")
+            or delta("checkpoint_rollback_steps")):
+        raise SystemExit("chip_smoke: the planted fault was not recovered "
+                         "by one transient step retry")
+    if any(step != want for step in per_step):
+        raise SystemExit(f"chip_smoke: fleet launches {per_step} != {want}")
+    torch.cuda.empty_cache()
+    return launches
 
 
 # Pipeline stages over several devices (ROADMAP item 13b), one card in the
@@ -2679,14 +2872,15 @@ def _quantiles(values) -> dict:
             "n": len(v)}
 
 
-def phase_serving() -> None:
+def phase_serving() -> dict:
     """GPT-2 1.5B at full width and depth served through the paged
     ``ServingEngine`` (module comment at SERVE_*): in fp32 with TF32 off,
     every request's tokens equal ``sample()`` on its prompt alone and a
     slot-mode engine's on the same schedule; in bf16, statuses, zero pages
     after drain, the prefix hits, the TTFT histogram's count and no flash
     launch are checked and the run is timed; then the supervisor replays a
-    decode fault at 8 layers exactly once."""
+    decode fault at 8 layers exactly once. Returns the fp32 paged run's
+    results by request id (the serve_rpc phase's reference)."""
     import torch
 
     from tepdist_tpu_torch import telemetry
@@ -2853,6 +3047,195 @@ def phase_serving() -> None:
                          f"uninterrupted run in {differ}")
     del sup, params
     torch.cuda.empty_cache()
+    return paged["results"]
+
+
+# serve_rpc phase: the serving phase's schedule through the service:
+# ServeClient over SERVE_RPC_SERVERS in-process servers on card 0, each
+# with a supervised engine from LoadServable (the serving phase's engine
+# settings). First one KV handoff: r0's prompt prefilled on server 0
+# (prefill_only), adopted by server 1 (AdoptPages pulling ExportPages),
+# released on server 0, decoded on server 1. Then the schedule: the first
+# wave, the second once the first has its first tokens, r3 cancelled after
+# SERVE_CANCEL_AT tokens, and server 1 drained right after the second wave
+# (its queued requests resubmitted on server 0 under their ids). In fp32
+# (TF32 off) every request's tokens equal the serving phase's engine's;
+# in bf16 the same schedule is timed. Budget: about 90 s.
+SERVE_RPC_SERVERS = 2
+
+
+def _serve_rpc_run(sc, schedule) -> dict:
+    """The schedule through ServeClient ``sc`` (module comment above):
+    results by id, host TTFT, the drain's report and the wall."""
+    t_sub, ttft, waves = {}, {}, {0: False, 1: False}
+    cancel_rid, cancelled, drain = f"r{SERVE_CANCEL}", False, None
+
+    def submit(wave):
+        waves[wave] = True
+        for r in schedule:
+            if r["wave"] == wave:
+                t_sub[r["rid"]] = time.perf_counter()
+                out = sc.submit(r["prompt"], request_id=r["rid"],
+                                **r["kw"])
+                if out["status"] != "queued":
+                    raise SystemExit(f"chip_smoke: serve_rpc {r['rid']} "
+                                     f"not queued: {out}")
+
+    from tepdist_tpu_torch.serving.engine import TERMINAL
+
+    submit(0)
+    t0 = time.perf_counter()
+    while True:
+        res = sc.poll(wait_ms=5.0)
+        now = time.perf_counter()
+        for rid, r in res.items():
+            if r["n_tokens"] and rid not in ttft:
+                ttft[rid] = (now - t_sub[rid]) * 1e3
+        if not waves[1] and all(res[r["rid"]]["n_tokens"]
+                                for r in schedule if r["wave"] == 0):
+            submit(1)
+            drain = sc.drain(SERVE_RPC_SERVERS - 1, wait_ms=0.0)
+        if (not cancelled and cancel_rid in res
+                and res[cancel_rid]["n_tokens"] >= SERVE_CANCEL_AT):
+            cancelled = sc.cancel(cancel_rid)
+        if waves[1] and all(r["status"] in TERMINAL
+                            for r in res.values()):
+            break
+        if now - t0 > 600:
+            raise SystemExit("chip_smoke: the serve_rpc schedule did not "
+                             "end")
+    return {"results": sc.poll(), "host_ttft_ms": ttft,
+            "wall_s": time.perf_counter() - t0, "drain": drain}
+
+
+def _serve_rpc_handoff(sc, servers, rid, r) -> list:
+    """One KV handoff server 0 -> server 1 of request ``rid``; its
+    tokens."""
+    (c0, s0), (c1, s1) = sc._placements[0], sc._placements[1]
+    c0.submit_request(s0, rid, r["prompt"], prefill_only=True, **r["kw"])
+    for _ in range(6000):
+        st = c0.poll_result(s0, [rid], wait_ms=20)[0]
+        if st["status"] == "prefilled":
+            break
+    if st["status"] != "prefilled":
+        raise SystemExit(f"chip_smoke: handoff prefill ended {st}")
+    out = c1.adopt_pages(s1, rid, r["prompt"], source_addr=servers[0],
+                         source_sid=s0, **r["kw"])
+    if out.get("status") != "adopted":
+        raise SystemExit(f"chip_smoke: AdoptPages answered {out}")
+    if not c0.export_pages(s0, rid, release=True)["released"]:
+        raise SystemExit("chip_smoke: ExportPages did not release")
+    for _ in range(6000):
+        st = c1.poll_result(s1, [rid], wait_ms=20)[0]
+        if st["status"] == "done":
+            return list(st["tokens"])
+    raise SystemExit(f"chip_smoke: the adopted request ended {st}")
+
+
+def phase_serve_rpc(fp32_results) -> None:
+    """GPT-2 1.5B served through the service (module comment at
+    SERVE_RPC_SERVERS): ServeClient, LoadServable, the serve verbs, a
+    KV handoff and a drain; fp32 tokens held to the serving phase's
+    engine, then a timed bf16 run."""
+    import torch
+
+    from tepdist_tpu_torch import telemetry
+    from tepdist_tpu_torch.models import gpt2
+    from tepdist_tpu_torch.ops import flash_attention as fa
+    from tepdist_tpu_torch.rpc import inproc
+    from tepdist_tpu_torch.rpc.server import TepdistServicer
+    from tepdist_tpu_torch.serving.client import ServeClient
+
+    smi = nvidia_smi()
+    base = gpt2.CONFIGS["1.5B"]
+    schedule = _serve_schedule(base.vocab_size)
+    engine = dict(SERVE_ENGINE, slots=SERVE_REQUESTS)
+    servers = [f"inproc:{9300 + i}" for i in range(SERVE_RPC_SERVERS)]
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        servicers = [TepdistServicer([torch.device("cuda", 0)],
+                                     task_index=i)
+                     for i in range(SERVE_RPC_SERVERS)]
+        for a, sv in zip(servers, servicers):
+            inproc.register_servicer(a, sv)
+        sc = ServeClient(servers)
+        timed = dtype == torch.bfloat16
+        try:
+            params = gpt2.init_params(cfg, seed=21, device="cuda")
+            t0 = time.perf_counter()
+            sc.load(params, cfg, name=f"gpt2-{cfg.dtype}", **engine)
+            load_s = time.perf_counter() - t0
+            del params
+            torch.cuda.empty_cache()
+            telemetry.metrics().reset()
+            handoff = _serve_rpc_handoff(sc, servers, "kv0", schedule[0])
+            if timed:
+                tracer = telemetry.configure(enabled=True,
+                                             capacity=1 << 16)
+                tracer.clear()
+            fa.reset_launch_counts()
+            run = _serve_rpc_run(sc, schedule)
+            snap = telemetry.metrics().snapshot()
+            spans = tracer.snapshot() if timed else []
+            if timed:
+                telemetry.configure(enabled=False)
+            out[str(dtype)] = dict(run=run, handoff=handoff, load_s=load_s,
+                                   snap=snap, spans=spans,
+                                   flash=dict(fa.launch_counts))
+        finally:
+            sc.close()
+            for a, sv in zip(servers, servicers):
+                sv.close_servables()
+                inproc.unregister_servicer(a)
+            torch.cuda.empty_cache()
+    r32 = out[str(torch.float32)]
+    _check_statuses(r32["run"], "serve_rpc fp32")
+    differ = _tokens_differ(r32["run"]["results"], fp32_results)
+    kv_ok = r32["handoff"] == fp32_results["r0"]["tokens"]
+    b = out[str(torch.bfloat16)]
+    _check_statuses(b["run"], "serve_rpc bf16")
+    hist = b["snap"]["histograms"].get("serve_ttft_ms", {})
+    decode_ms = {}
+    for sp in b["spans"]:
+        if sp["name"] == "serve:decode":
+            decode_ms.setdefault(sp["args"]["batch"], []).append(
+                sp["dur"] / 1e3)
+    tokens = sum(r["n_tokens"] for r in b["run"]["results"].values())
+    c = b["snap"]["counters"]
+    emit({"phase": "serve_rpc", "model": "GPT-2 1.5B", "nvidia_smi": smi,
+          "servers": SERVE_RPC_SERVERS,
+          "devices": "every server on cuda:0 (inproc: addresses)",
+          "requests": SERVE_REQUESTS, "new_tokens": SERVE_NEW,
+          "engine": engine, "check_dtype": "float32, TF32 off",
+          "fp32_requests_differing_from_serving_phase": differ,
+          "fp32_kv_handoff_equal": kv_ok,
+          "fp32_drain": r32["run"]["drain"],
+          "load_seconds": {k: v["load_s"] for k, v in out.items()},
+          "timed_dtype": "bfloat16",
+          "statuses": {k: r["status"]
+                       for k, r in b["run"]["results"].items()},
+          "wall_seconds": b["run"]["wall_s"], "tokens": tokens,
+          "tokens_per_s": tokens / b["run"]["wall_s"],
+          "ttft_ms_histogram": {"p50": hist.get("p50"),
+                                "p99": hist.get("p99"),
+                                "count": hist.get("count")},
+          "ttft_ms_host": _quantiles(b["run"]["host_ttft_ms"].values()),
+          "decode_step_ms_by_batch": {
+              k: _quantiles(v) for k, v in sorted(decode_ms.items())},
+          "drain": b["run"]["drain"],
+          "drain_handoffs": c.get("drain_handoffs", 0),
+          "prefix_hits": c.get("prefix_hits", 0),
+          "kv_pages_adopted": c.get("kv_pages_adopted", 0),
+          "flash_launches": b["flash"]})
+    if differ or not kv_ok:
+        raise SystemExit(f"chip_smoke: serve_rpc fp32 tokens differ from "
+                         f"the serving phase's in {differ} (KV handoff "
+                         f"equal: {kv_ok})")
+    for k, v in out.items():
+        if any(v["flash"].values()):
+            raise SystemExit(f"chip_smoke: serve_rpc launched flash "
+                             f"kernels {v['flash']} ({k})")
 
 
 def _time_chunk(eng) -> dict:
@@ -2925,14 +3308,18 @@ def main() -> int:
     rpc_launches = phase_rpc(PLAN_BATCH // plan_mb, plan_losses,
                              spmd_seconds)
     mark("rpc")
-    pipe_launches, pipe_losses = phase_pipeline(plan_losses,
-                                                PLAN_BATCH // plan_mb)
+    pipe_launches, pipe_losses, pipe_prog = phase_pipeline(
+        plan_losses, PLAN_BATCH // plan_mb)
     # The pipeline path's kernels at its micro batch.
     pipe_mb = PLAN_BATCH // PIPE_MICRO
     pipe_case = _checked_case("pipeline_path", dict(
         B=pipe_mb, H=25, T=SEQ, D=64, dtype=torch.bfloat16, causal=True),
         seed=300, time_it=True)
     mark("pipeline")
+    # The fleet pipeline: the same program over in-process workers.
+    fleet_launches = phase_fleet(pipe_prog, pipe_losses)
+    del pipe_prog
+    mark("fleet")
     # Stages over several devices (one card): intra-stage replicas, ZeRO,
     # the collective pipeline; the kernels at a replica's micro batch.
     pipe_dp_launches = phase_pipeline_dp(pipe_losses)
@@ -2976,8 +3363,10 @@ def main() -> int:
     mark("sampling")
     phase_models()
     mark("models")
-    phase_serving()
+    fp32_serving = phase_serving()
     mark("serving")
+    phase_serve_rpc(fp32_serving)
+    mark("serve_rpc")
     emit({"phase": "timing", "phase_seconds": seconds,
           "total_seconds": sum(seconds.values())})
     rows = []
@@ -2999,6 +3388,9 @@ def main() -> int:
             (f"[{pipe_mb}*25, 1024, 64] bf16 causal (GPT-2 1.5B pipeline "
              f"phase: 4 stages, M = {PIPE_MICRO})", pipe_case,
              pipe_launches),
+            (f"[{pipe_mb}*25, 1024, 64] bf16 causal (GPT-2 1.5B fleet "
+             f"phase: 4 stages on {FLEET_WORKERS} in-process workers, "
+             f"M = {PIPE_MICRO})", pipe_case, fleet_launches),
             (f"[{dp_mb}*25, 1024, 64] bf16 causal (GPT-2 1.5B pipeline_dp "
              f"phase: 2 stages x 2 replicas, M = {PIPE_MICRO})",
              pipe_dp_case, pipe_dp_launches),

@@ -227,8 +227,15 @@ def _run_blocks(blocks, x, cfg: GPT2Config, attn_impl):
 
 
 def _embed(params, tokens, cfg: GPT2Config):
+    """Token + position embeddings. The token lookup is ``F.embedding``,
+    whose backward (``embedding_dense_backward``) DTensor propagates with
+    split token ids: the table's gradient comes out ``Partial`` (a sum
+    over the ranks), as GSPMD's scatter-add does. An indexing lookup's
+    backward (``index_put`` with accumulate) fails to propagate there on
+    some torch releases (ROADMAP C8)."""
     T = tokens.shape[1]
-    x = params["wte"][tokens.long()] + params["wpe"][:T]
+    x = (torch.nn.functional.embedding(tokens.long(), params["wte"])
+         + params["wpe"][:T])
     return x.to(cfg.dtype)
 
 

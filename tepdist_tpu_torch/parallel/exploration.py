@@ -258,7 +258,6 @@ def pipeline_candidates(loss_fn: Callable, params, example_batch,
     from tepdist_tpu_torch.runtime.execution_plan import (
         build_pipeline_task_dag)
     from tepdist_tpu_torch.runtime.task_graph import TaskType
-    from tepdist_tpu_torch.runtime.executor import stage_tp_over_nccl
 
     # Stage owners hold their stage's params + optimizer state; the
     # scheduler's activation/weight model never sees the optimizer, so
@@ -267,7 +266,6 @@ def pipeline_candidates(loss_fn: Callable, params, example_batch,
     param_bytes = float(sum(math.prod(l.shape) * l.element_size()
                             for l in tree_leaves(params)))
 
-    no_stage_tp = stage_tp_over_nccl()
     out: List[Dict[str, Any]] = []
     for S in (2, 4, 8, 16):
         # Blocked placements need S <= devices; VIRTUAL stages (the
@@ -305,13 +303,6 @@ def pipeline_candidates(loss_fn: Callable, params, example_batch,
                         "enumeration_skip",
                         message=f"tp={tp} does not fit the {per} "
                                 "devices per stage")
-                    continue
-                if tp > 1 and no_stage_tp:
-                    observatory.record_prune(
-                        "pipeline", f"S={S} M={M} tp={tp}",
-                        "enumeration_skip",
-                        message="stage x TP over NCCL hangs in its first "
-                                "step (ROADMAP C8)")
                     continue
                 try:
                     dag, _ = build_pipeline_task_dag(prog, stage_devs)

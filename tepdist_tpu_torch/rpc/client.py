@@ -356,5 +356,184 @@ class TepdistClient:
         header, _ = protocol.unpack(resp)
         return int(header.get("global_step", -1))
 
+    # -- serving (single-engine servables) -----------------------------
+    def load_servable(self, config: Dict[str, Any],
+                      param_leaves: Sequence[Any], *,
+                      slots: int = 4, max_len: Optional[int] = None,
+                      buckets: Optional[Sequence[int]] = None,
+                      max_queue: int = 64,
+                      name: str = "servable",
+                      max_restarts: int = 3,
+                      shed_high: Optional[int] = None,
+                      shed_low: Optional[int] = None,
+                      kv_mode: str = "paged", page_size: int = 16,
+                      n_pages: Optional[int] = None,
+                      hbm_budget_bytes: Optional[float] = None,
+                      prefix_cache: bool = True,
+                      prefill_chunk: Optional[int] = None,
+                      stage: Optional[Dict[str, Any]] = None) -> str:
+        """Ship a model (JSON-able GPT2Config dict + flat param leaves in
+        tree order) and start its supervised serving engine. Returns the
+        servable id the other serve verbs take. ``stage`` (a pipeline
+        stage servable) is fleet serving's (ROADMAP item 17)."""
+        metas, blobs = [], []
+        for leaf in param_leaves:
+            meta, blob = protocol.encode_literal(leaf)
+            metas.append(meta)
+            blobs.append(blob)
+        resp = self.call("LoadServable", {
+            "config": config, "params_meta": metas, "slots": int(slots),
+            "max_len": max_len,
+            "buckets": list(buckets) if buckets is not None else None,
+            "max_queue": int(max_queue), "name": name,
+            "max_restarts": int(max_restarts),
+            "shed_high": shed_high, "shed_low": shed_low,
+            "kv_mode": kv_mode, "page_size": int(page_size),
+            "n_pages": n_pages, "hbm_budget_bytes": hbm_budget_bytes,
+            "prefix_cache": bool(prefix_cache),
+            "prefill_chunk": prefill_chunk,
+            "stage": stage}, blobs)
+        header, _ = protocol.unpack(resp)
+        return header["servable_id"]
+
+    @staticmethod
+    def _prompt(prompt):
+        import numpy as np
+        return protocol.encode_literal(
+            np.asarray(prompt, np.int32).reshape(-1))
+
+    def submit_request(self, servable_id: str, request_id: str,
+                       prompt, *, max_new_tokens: int, greedy: bool = True,
+                       temperature: float = 1.0, top_k: int = 0,
+                       seed: int = 0,
+                       deadline_ms: Optional[float] = None,
+                       slo_class: str = "default",
+                       prefill_only: bool = False
+                       ) -> Dict[str, Any]:
+        meta, blob = self._prompt(prompt)
+        resp = self.call("SubmitRequest", {
+            "servable_id": servable_id, "request_id": request_id,
+            "prompt": meta, "max_new_tokens": int(max_new_tokens),
+            "greedy": bool(greedy), "temperature": float(temperature),
+            "top_k": int(top_k), "seed": int(seed),
+            "deadline_ms": deadline_ms,
+            "slo_class": str(slo_class),
+            "prefill_only": bool(prefill_only)}, [blob])
+        header, _ = protocol.unpack(resp)
+        return header
+
+    def poll_result(self, servable_id: str,
+                    request_ids: Optional[Sequence[str]] = None,
+                    wait_ms: float = 0.0) -> List[Dict[str, Any]]:
+        """Long-poll request states; generated tokens ride in the JSON
+        header (short int lists, not tensor payloads)."""
+        resp = self.call("PollResult", {
+            "servable_id": servable_id,
+            "request_ids": (list(request_ids)
+                            if request_ids is not None else None),
+            "wait_ms": float(wait_ms)},
+            timeout=retry.deadline_for("PollResult") + wait_ms / 1e3)
+        header, _ = protocol.unpack(resp)
+        return header["results"]
+
+    def cancel_request(self, servable_id: str,
+                       request_id: str) -> bool:
+        resp = self.call("CancelRequest", {
+            "servable_id": servable_id, "request_id": request_id})
+        header, _ = protocol.unpack(resp)
+        return bool(header["cancelled"])
+
+    def drain_servable(self, servable_id: str,
+                       wait_ms: float = 0.0) -> List[Dict[str, Any]]:
+        """Gracefully drain the servable: admission stops, resident
+        slots get up to ``wait_ms`` to finish, and every un-started
+        queued request comes back as a resubmittable spec."""
+        resp = self.call("Drain", {
+            "servable_id": servable_id, "wait_ms": float(wait_ms)},
+            timeout=retry.deadline_for("Drain") + wait_ms / 1e3)
+        header, _ = protocol.unpack(resp)
+        return header["handed_off"]
+
+    # -- live migration ------------------------------------------------
+    def fetch_shard(self, global_idx: Optional[int] = None, *,
+                    bounds: Optional[Sequence[Sequence[int]]] = None,
+                    opt_stage: Optional[int] = None,
+                    wire_dtype: Optional[str] = None
+                    ) -> Optional[Any]:
+        """Pure read of migration source state. Variable mode
+        (``global_idx``, optional ``bounds`` slice in global coordinates)
+        returns one host tensor; ``opt_stage`` mode returns the stage's
+        optimizer slot list. None when the worker does not hold the key."""
+        resp = self.call("FetchShard", {
+            "global_idx": global_idx,
+            "bounds": [list(b) for b in bounds] if bounds else None,
+            "opt_stage": opt_stage, "wire_dtype": wire_dtype})
+        header, blobs = protocol.unpack(resp)
+        if not header.get("found"):
+            return None
+        if opt_stage is not None:
+            return [protocol.decode_literal(m, blobs[i])
+                    for i, m in enumerate(header["slots"])]
+        return protocol.decode_literal(header["literal"], blobs[0])
+
+    def adopt_shard(self, moves: List[Dict[str, Any]],
+                    migration_id: str = "") -> Dict[str, Any]:
+        """Instruct the destination worker to pull + install the listed
+        shard moves (see the server's AdoptShard for the move schema).
+        Mutating: rides the idem token."""
+        resp = self.call("AdoptShard",
+                         {"moves": moves, "migration_id": migration_id})
+        header, _ = protocol.unpack(resp)
+        return header
+
+    # -- KV handoff ----------------------------------------------------
+    def export_pages(self, servable_id: str, request_id: str, *,
+                     want: Optional[Sequence[int]] = None,
+                     release: bool = False,
+                     wire_dtype: Optional[str] = None
+                     ) -> Optional[Dict[str, Any]]:
+        """Gather a prefilled request's live KV pages (pure read).
+        ``want`` selects live-page ordinals; ``release=True`` flips the
+        source request to "handed_off" and frees its pages. Gather mode
+        returns None when the request is not exportable."""
+        resp = self.call("ExportPages", {
+            "servable_id": servable_id, "request_id": request_id,
+            "want": list(want) if want is not None else None,
+            "release": bool(release), "wire_dtype": wire_dtype})
+        header, blobs = protocol.unpack(resp)
+        if release:
+            return {"released": bool(header.get("released"))}
+        if not header.get("found"):
+            return None
+        return {"first_token": int(header["first_token"]),
+                "pos": int(header["pos"]),
+                "n_live": int(header["n_live"]),
+                "idx": list(header["idx"]),
+                "k": protocol.decode_literal(header["k"], blobs[0]),
+                "v": protocol.decode_literal(header["v"], blobs[1])}
+
+    def adopt_pages(self, servable_id: str, request_id: str, prompt, *,
+                    source_addr: str, source_sid: str,
+                    max_new_tokens: int, greedy: bool = True,
+                    temperature: float = 1.0, top_k: int = 0,
+                    seed: int = 0, deadline_ms: Optional[float] = None,
+                    slo_class: str = "default",
+                    wire_dtype: Optional[str] = None) -> Dict[str, Any]:
+        """Instruct the decode replica to pull the request's live KV
+        pages from ``source_addr``/``source_sid`` (nested ExportPages),
+        install them and resume decode. Mutating: rides the idem token."""
+        meta, blob = self._prompt(prompt)
+        resp = self.call("AdoptPages", {
+            "servable_id": servable_id, "request_id": request_id,
+            "prompt": meta, "source_addr": source_addr,
+            "source_sid": source_sid,
+            "max_new_tokens": int(max_new_tokens),
+            "greedy": bool(greedy), "temperature": float(temperature),
+            "top_k": int(top_k), "seed": int(seed),
+            "deadline_ms": deadline_ms, "slo_class": str(slo_class),
+            "wire_dtype": wire_dtype}, [blob])
+        header, _ = protocol.unpack(resp)
+        return header
+
     def close(self) -> None:
         self.stub.close()

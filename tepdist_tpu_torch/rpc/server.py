@@ -1,5 +1,5 @@
 """Tepdist RPC server: the service layer (the port of the JAX package's
-``rpc/server.py``, single-server verbs).
+``rpc/server.py``).
 
 Reference parity: ``GRPCService`` over ``xla::Service`` with TePDist's
 handlers (reference: rpc/grpc_service.{h,cc}, service/service_rt.cc):
@@ -12,12 +12,19 @@ handlers (reference: rpc/grpc_service.{h,cc}, service/service_rt.cc):
     aliased state back to the server-side variable store, return literals.
   * Variable registration / FetchResourceVars / checkpoint latching
     (ckpt_opts_ consumed on next ExecutePlan, service_rt.cc:84-118).
+  * The fleet's worker verbs (TransferModuleAndDefCtx, DispatchPlan,
+    ExecuteRemotePlan / ExecuteStepSlice, AbortStep, FetchShard /
+    AdoptShard; ``rpc/worker_plan.py``), and the single-engine servable
+    verbs (LoadServable, SubmitRequest, PollResult, CancelRequest, Drain,
+    ExportPages / AdoptPages) over a supervised serving engine.
 
 The server owns the devices (client machines need none): by default the
 card, the CPU only when asked (``--device cpu``, ``devices=["cpu"]``). An
-SPMD plan runs over the server's own process group, a world of one rank
-on its device; a plan over more ranks waits for the multi-host client
-(ROADMAP item 15b). ``grpc`` is imported only where a server opens.
+SPMD plan runs over the server's process group: a world of one rank on
+its device, or, for a server started with ``--coordinator_address`` and
+``--num_processes`` (the multi-host client's), one rank of a world whose
+ranks compose the plan's mesh (rank 0 plans and broadcasts). ``grpc`` is
+imported only where a server opens.
 """
 
 from __future__ import annotations
@@ -38,7 +45,8 @@ import torch
 from tepdist_tpu_torch.core.device import resolve_device
 from tepdist_tpu_torch.core.mesh import MeshTopology
 from tepdist_tpu_torch.core.service_env import ServiceEnv
-from tepdist_tpu_torch.core.tree import tree_leaves
+from tepdist_tpu_torch.core.tree import (tree_leaves, tree_structure,
+                                         tree_unflatten)
 from tepdist_tpu_torch.rpc import fx_serde, protocol
 from tepdist_tpu_torch.rpc import retry as rpc_retry
 from tepdist_tpu_torch.runtime import faults
@@ -50,15 +58,9 @@ from tepdist_tpu_torch.telemetry import watchtower
 log = logging.getLogger("tepdist.server")
 
 # The verbs of later items: each raises NotImplementedError naming its
-# item (ROADMAP.md, slice 5).
-LATER_VERBS = {
-    "TransferModuleAndDefCtx": "16", "DispatchPlan": "16",
-    "ExecuteRemotePlan": "16", "ExecuteStepSlice": "16",
-    "AbortStep": "16", "FetchShard": "16", "AdoptShard": "16",
-    "LoadServable": "15b", "SubmitRequest": "15b", "PollResult": "15b",
-    "CancelRequest": "15b", "Drain": "15b", "ExportPages": "15b",
-    "AdoptPages": "15b", "ExecuteServableSlice": "17",
-}
+# item (ROADMAP.md, slice 5): a pipeline-stage servable's slice is fleet
+# serving's.
+LATER_VERBS = {"ExecuteServableSlice": "17"}
 
 
 def _free_port() -> int:
@@ -259,6 +261,23 @@ class TepdistServicer:
         self._idem_lock = threading.Lock()
         self._active_pipeline: Optional[_CompiledPipelinePlan] = None
         self._pipeline_restored = False
+        # Slave-side distributed plan state (reference lifecycle §3.5):
+        # module id -> stage runtime, and the dispatched task list.
+        self.modules: Dict[int, bytes] = {}
+        self.stage_modules: Dict[int, Any] = {}
+        self.worker_plan = None
+        # step -> parked transfer-registry uuids (device-direct hops):
+        # kept alive until the consumer's pull has landed (a step behind),
+        # or freed at AbortStep.
+        self._parked_transfers: Dict[int, List[int]] = {}
+        self._pull_pool_obj = None
+        # Serving engines: servable_id -> supervised engine.
+        self.servables: Dict[str, Any] = {}
+        self._servable_next = 1
+        # Live migration staging: optimizer slots adopted BEFORE the
+        # migration's DispatchPlan lands; its carry_state merge reads it.
+        self.adopted_opt: Dict[int, List[Any]] = {}
+        self._migration_peers: Dict[str, Any] = {}
 
     # -- idempotency dedup (see _idem_cache in __init__) ----------------
     _IDEM_CACHE_MAX = 128
@@ -309,6 +328,32 @@ class TepdistServicer:
         if plan is not None:
             plan.server_fault(verb, self.task_index)
 
+    def park_transfer(self, step: int, uuid: int) -> None:
+        with self._lock:
+            self._parked_transfers.setdefault(step, []).append(uuid)
+        metrics().counter("transfers_parked").inc()
+
+    def release_parked_transfers(self, before_step: Optional[int] = None
+                                 ) -> int:
+        from tepdist_tpu_torch.rpc.worker_plan import unpark
+
+        with self._lock:
+            gone = [st for st in self._parked_transfers
+                    if before_step is None or st < before_step]
+            uuids = [u for st in gone for u in self._parked_transfers[st]]
+            for st in gone:
+                del self._parked_transfers[st]
+        freed = unpark(uuids)
+        if freed:
+            metrics().counter("transfers_freed").inc(freed)
+        return freed
+
+    def _pull_pool(self):
+        if self._pull_pool_obj is None:
+            self._pull_pool_obj = futures.ThreadPoolExecutor(
+                max_workers=2, thread_name_prefix="ticket-pull")
+        return self._pull_pool_obj
+
     def _sync_active_pipeline(self) -> None:
         """Flush the live pipeline runtime's state into the variable store
         before ANY store read (fetch / save / an SPMD plan resolving
@@ -337,9 +382,10 @@ class TepdistServicer:
         self._active_pipeline = None
 
     def _ensure_world(self) -> None:
-        """The process group the server's SPMD plans run over: a world of
-        one rank on its device (NCCL on a card, gloo on the CPU), made at
-        the first plan unless the process already has one."""
+        """The process group the server's SPMD plans run over: the
+        process's world when it has one (a multi-rank server's, made at
+        start), else a world of one rank on its device (NCCL on a card,
+        gloo on the CPU), made at the first plan."""
         import torch.distributed as dist
 
         if dist.is_initialized():
@@ -404,6 +450,49 @@ class TepdistServicer:
                 "no optimizer_spec from client"
                 if optimizer is None else "no micro-shape loss trace")
         return best, loss, params, batch, optimizer, explored
+
+    def _recompose_step(self, loss, optimizer, num_micro_batches,
+                        topology, params, batch, n_state):
+        """The full training step composed again server-side (gradients +
+        GA + the optimizer's apply: ``client/session.py``'s composition),
+        for an explore winner whose step differs from the shipped one: a
+        ``seq`` axis rewrites the loss's attention into the ring or
+        Ulysses op first, at the shapes GA evaluates the loss at (the
+        micro batch's for M > 1). Returns the captured step's graph."""
+        from tepdist_tpu_torch.graph.fx_graph import trace_graph
+        from tepdist_tpu_torch.parallel.pipeline import micro_abstract_batch
+        from tepdist_tpu_torch.parallel.sync_free import build_ga_step
+        from tepdist_tpu_torch.train import value_and_grad
+
+        if optimizer is None:
+            raise ValueError("a seq winner composes the step server-side: "
+                             "the client must send its optimizer_spec")
+        seq = dict(topology.device_axes()).get("seq", 1)
+        if seq > 1:
+            from tepdist_tpu_torch.parallel.attention_motif import (
+                seq_rewritten_loss)
+            micro = (micro_abstract_batch(tuple(batch), num_micro_batches)
+                     if num_micro_batches > 1 else tuple(batch))
+            loss, _impl = seq_rewritten_loss(loss, seq, list(params),
+                                             *micro)
+
+        def apply_fn(p, st, g):
+            return p, optimizer.apply(p, g, st)
+
+        step_fn = build_ga_step(
+            value_and_grad(loss), apply_fn, num_micro_batches,
+            batch_argnums=tuple(range(1, 1 + len(batch))))
+        plist = list(params)
+        opt_state = optimizer.init(plist)
+        n_server = len(plist) + len(tree_leaves(opt_state))
+        if n_server != n_state:
+            raise ValueError(
+                f"server-composed state has {n_server} leaves but the "
+                f"client registered {n_state}: the optimizer_spec does "
+                "not match the client's optimizer")
+        graph, _, _ = trace_graph(step_fn, plist, opt_state, *batch,
+                                  functional=True)
+        return graph.gm
 
     def _build_pipeline_plan(self, opts, best, loss, params, batch,
                              optimizer, explored, t0) -> bytes:
@@ -502,6 +591,7 @@ class TepdistServicer:
         mode = opts.get("mode", "cost")
         axes = opts.get("mesh_axes")
         explored = None
+        recompose = None
         env = ServiceEnv.get()
         if (opts.get("explore") and not axes and mode != "rule"
                 and env.opt_level >= 1 and "loss_module_blob" in opts):
@@ -513,18 +603,35 @@ class TepdistServicer:
                     opts, best, loss, params, batch, optimizer, explored,
                     t0)
             axes = [[a, n] for a, n in best["topology"].device_axes()]
+            if any(a == "seq" and n > 1 for a, n in axes):
+                # The shipped step traced plain attention; the seq winner
+                # runs the ring/Ulysses rewrite: the step is composed
+                # again here and THAT is planned.
+                M_c = max(int(opts.get("num_micro_batches", 1)), 1)
+                n_state = len(opts.get("variable_indices", []))
+
+                def recompose(topo):
+                    return self._recompose_step(loss, optimizer, M_c, topo,
+                                                params, batch, n_state)
         if not axes:
             axes = [["data", len(self.devices)]]
         topology = MeshTopology(
             [(a, int(n)) for a, n in axes],
             share_dev_flags=opts.get("share_dev_flags"))
-        if topology.num_devices > 1:
+        self._ensure_world()
+        import torch.distributed as dist
+
+        world = dist.get_world_size()
+        if topology.num_devices != world:
             raise ValueError(
                 f"a plan over {topology.num_devices} devices ({axes}) runs "
-                "across processes, one rank a device: that is the "
-                "multi-host client's (ROADMAP item 15b); this server holds "
-                "one rank")
-        gm = self._graph(blobs[0])
+                f"one rank a device; this server's world has {world} "
+                "rank(s) (start the servers with --coordinator_address and "
+                "--num_processes for a multi-host plan)")
+        if recompose is not None:
+            gm = recompose(topology)
+        else:
+            gm = self._graph(blobs[0])
         with span("planner:sketch", cat="planner"):
             graph = FxGraph(gm)
         annotations = None
@@ -535,7 +642,6 @@ class TepdistServicer:
             }
         state_alias = {int(k): int(v)
                        for k, v in (opts.get("state_alias") or {}).items()}
-        self._ensure_world()
         with span("planner:strategy_ilp", cat="planner", mode=mode):
             pplan = plan_graph(graph, topology, annotations=annotations,
                                mode=mode, state_alias=state_alias)
@@ -611,9 +717,14 @@ class TepdistServicer:
                         ent["raw_key"], protocol.decode_literal(
                             ent["literal"], blobs[i]).clone())
             elif "pull" in header:
-                raise NotImplementedError(
-                    "device-direct pull tickets belong to the fleet's "
-                    "DispatchPlan (ROADMAP item 16)")
+                # Device-direct ticket: the value stays on the producer's
+                # device. PREFETCH: the pull starts NOW on a pool thread,
+                # so the consumer's recv overlaps the copy.
+                from tepdist_tpu_torch.rpc.worker_plan import (PendingPull,
+                                                               PullTicket)
+                ticket = PullTicket(**header["pull"])
+                self.raw_store.put(header["raw_key"], PendingPull(
+                    self._pull_pool().submit(ticket.pull, self.device)))
             elif "literals" in header:  # tuple payload (GA accumulators)
                 vals = tuple(protocol.decode_literal(m, blobs[i]).clone()
                              for i, m in enumerate(header["literals"]))
@@ -824,7 +935,8 @@ class TepdistServicer:
     def DoRemoteRestore(self, request: bytes, context=None) -> bytes:
         header, _ = protocol.unpack(request)
         self._check_epoch(header)
-        opts = {"global_step": int(header.get("global_step", -1))}
+        opts = {"global_step": int(header.get("global_step", -1)),
+                "all_shards": bool(header.get("all_shards"))}
         if header.get("lazy"):
             self.ckpt_opts["restore"] = opts
             return protocol.pack({"ok": True})
@@ -838,6 +950,11 @@ class TepdistServicer:
         with self._lock:
             # DTensor leaves are gathered by the writer, one at a time.
             data = {str(k): v for k, v in self.variables.items()}
+            # Worker-side optimizer slots are recoverable state too.
+            if self.worker_plan is not None:
+                for stage, slots in self.worker_plan.opt_states.items():
+                    for j, slot in enumerate(slots):
+                        data[f"opt:{stage}:{j}"] = slot
             CheckpointUtil(self.ckpt_dir,
                            max_to_keep=opts.get("max_to_keep", 5),
                            own_manifest=(self.task_index == 0)).save(
@@ -847,11 +964,27 @@ class TepdistServicer:
     def _do_restore(self, opts) -> None:
         from tepdist_tpu_torch.runtime.checkpoint import CheckpointUtil
 
-        data, step = CheckpointUtil(self.ckpt_dir).restore(
-            opts.get("global_step", -1), worker_id=self.task_index)
+        util = CheckpointUtil(self.ckpt_dir)
+        if opts.get("all_shards"):
+            # Elastic re-dispatch: this worker may have adopted stages a
+            # dead worker owned: read the union of every worker's files.
+            data, step = util.restore_union(opts.get("global_step", -1))
+        else:
+            data, step = util.restore(opts.get("global_step", -1),
+                                      worker_id=self.task_index)
         with self._lock:
+            opt_states: Dict[int, Dict[int, Any]] = {}
             for k, v in data.items():
-                self.variables[int(k)] = self._to_device(v)
+                if k.startswith("opt:"):
+                    _, stage, j = k.split(":")
+                    opt_states.setdefault(int(stage), {})[int(j)] = (
+                        self._to_device(v))
+                else:
+                    self.variables[int(k)] = self._to_device(v)
+            if self.worker_plan is not None and opt_states:
+                self.worker_plan.opt_states = {
+                    stage: [slots[j] for j in sorted(slots)]
+                    for stage, slots in opt_states.items()}
             self.global_step = step
         # A live pipeline runtime reloads the restored state (params AND
         # optimizer slots) before its next step.
@@ -878,6 +1011,11 @@ class TepdistServicer:
                     int(s) for s in CheckpointUtil(self.ckpt_dir).steps()]
             except Exception:  # noqa: BLE001 — no manifest yet
                 out["ckpt_steps"] = []
+        # Live migration dirty-worker probe: the steps this plan already
+        # committed locally (a survivor ahead of the agreed state is
+        # rebased from the checkpoint, not trusted).
+        if self.worker_plan is not None:
+            out["wp_completed"] = sorted(self.worker_plan._completed)
         return protocol.pack(out)
 
     def GetTelemetry(self, request: bytes, context=None) -> bytes:
@@ -941,6 +1079,495 @@ class TepdistServicer:
             out["cursors"]["trace"] = tr_state
         return protocol.pack(out)
 
+    # -- the fleet's worker verbs ---------------------------------------
+    def TransferModuleAndDefCtx(self, request: bytes, context=None) -> bytes:
+        """Receive a stage module (its captured graph) and its metadata,
+        and the stage optimizer's ``init``/``update`` graphs when shipped
+        (reference: create_def_ctx_from_proto + module rebuild,
+        service_rt.cc:467)."""
+        header, blobs = protocol.unpack(request)
+        self._check_epoch(header)
+        module_id = int(header.get("module_id", 0))
+        self.modules[module_id] = bytes(blobs[0])
+        meta = header.get("stage_meta")
+        if meta is not None:
+            from tepdist_tpu_torch.rpc.worker_plan import StageModuleRuntime
+            with span("worker:deserialize", cat="planner"):
+                gm = self._graph(blobs[0])
+                opt_init = opt_update = None
+                if len(blobs) >= 3:
+                    opt_init = self._graph(blobs[1])
+                    opt_update = self._graph(blobs[2])
+            self.stage_modules[module_id] = StageModuleRuntime(
+                gm, meta, self.device, opt_init=opt_init,
+                opt_update=opt_update)
+        return protocol.pack({"ok": True})
+
+    def DispatchPlan(self, request: bytes, context=None) -> bytes:
+        """Receive this worker's task list + plan metadata and build the
+        executable WorkerPlan (reference: BuildDistributedPlanRPC,
+        virtual_client.cc:776)."""
+        header, _ = protocol.unpack(request)
+        self._check_epoch(header)
+        cached = self._idem_get(header)
+        if cached is not None:
+            # The original was applied and its response lost: a replay
+            # would discard the fresh RawStore and what was pushed to it.
+            return cached
+        self._inject_server_fault("DispatchPlan")
+        tasks = header.get("tasks", [])
+        # Live migration: a re-plan over the SAME program carries the
+        # named stages' optimizer slots (kept or just adopted) across the
+        # plan swap instead of letting the fresh plan re-run opt_init.
+        old_opt = None
+        if header.get("carry_state"):
+            old_opt = {}
+            if self.worker_plan is not None:
+                old_opt.update(self.worker_plan.opt_states)
+            old_opt.update(self.adopted_opt)   # adopted slots win
+            keep = header.get("carry_stages")
+            if keep is not None:
+                keep = {int(st) for st in keep}
+                old_opt = {st: v for st, v in old_opt.items() if st in keep}
+        self.adopted_opt = {}
+        # Each plan gets a FRESH RawStore: an old plan's still-running
+        # step keeps its reference to the ABORTED store and dies at its
+        # next recv/send check.
+        from tepdist_tpu_torch.rpc.worker_plan import RawStore, WorkerPlan
+        self.raw_store = RawStore()
+        self.release_parked_transfers()   # the old plan's pulls are moot
+        if self.worker_plan is not None:
+            self.worker_plan.close()
+        self.plan_gen = int(header.get("plan_gen", self.plan_gen + 1))
+        if header.get("plan_meta"):
+            self.worker_plan = WorkerPlan(self, tasks, header["plan_meta"])
+            if old_opt:
+                self.worker_plan.opt_states = old_opt
+        else:
+            # A coordinator-style dispatch (tasks only) must not leave a
+            # stale WorkerPlan bound to the old aborted store.
+            self.worker_plan = None
+        return self._idem_put(
+            header, protocol.pack({"ok": True, "n_tasks": len(tasks)}))
+
+    def _run_worker_step(self, verb: str, step: int) -> bytes:
+        with span(verb, cat="rpc", step=step), \
+                wire_ledger.step_hint(step):
+            result = self.worker_plan.run_step(step)
+        return protocol.pack({"ok": True, **result})
+
+    def ExecuteRemotePlan(self, request: bytes, context=None) -> bytes:
+        header, _ = protocol.unpack(request)
+        self._check_epoch(header)
+        # Injection BEFORE run_step: the completed-step cache makes a
+        # replay a cache hit, so a post-run fault would exercise only the
+        # rpc retry, never the master's _recover_step ladder.
+        self._inject_server_fault("ExecuteRemotePlan")
+        if self.worker_plan is None:
+            return protocol.pack({"ok": True, "losses": []})
+        return self._run_worker_step("ExecuteRemotePlan",
+                                     int(header.get("step", 0)))
+
+    def ExecuteStepSlice(self, request: bytes, context=None) -> bytes:
+        """Coalesced per-step dispatch: this worker's micro-batch slices
+        and the execute trigger in ONE envelope, results in one reply.
+        The puts are idempotent keyed writes with TransferHostRawData's
+        stale-generation drop; the execute rides the completed-step
+        cache, so a retried slice dedups as ExecuteRemotePlan does."""
+        header, blobs = protocol.unpack(request)
+        self._check_epoch(header)
+        self._inject_server_fault("ExecuteStepSlice")
+        gen = header.get("plan_gen")
+        if gen is not None and gen != self.plan_gen:
+            return protocol.pack({"ok": False, "stale_plan_gen": gen})
+        for i, ent in enumerate(header.get("raw_multi", ())):
+            self.raw_store.put(ent["raw_key"], protocol.decode_literal(
+                ent["literal"], blobs[i]).to(self.device, copy=True))
+        if self.worker_plan is None:
+            return protocol.pack({"ok": True, "losses": []})
+        return self._run_worker_step("ExecuteStepSlice",
+                                     int(header.get("step", 0)))
+
+    def AbortStep(self, request: bytes, context=None) -> bytes:
+        """Cancel an in-flight step: wake every blocked recv with
+        StepAbortedError (a peer died mid-step). ``{"reset": true}``
+        CLEARS the abort flag, keeping the store's data, for the master's
+        transient-fault retry of the same step."""
+        header, _ = protocol.unpack(request)
+        self._check_epoch(header)
+        if header.get("reset"):
+            self.raw_store.reset_abort()
+            return protocol.pack({"ok": True, "reset": True})
+        self.raw_store.abort()
+        # The abort latch fails every pre-abort pull: the parked buffers
+        # can go now.
+        freed = self.release_parked_transfers()
+        if freed:
+            metrics().counter("transfers_freed_on_abort").inc(freed)
+        return protocol.pack({"ok": True, "freed_transfers": freed})
+
+    # -- live migration -------------------------------------------------
+    def FetchShard(self, request: bytes, context=None) -> bytes:
+        """Pure read of migration source state. Variable mode
+        (``global_idx`` + optional ``bounds`` slice in global coordinates)
+        returns one literal; ``opt_stage`` mode that stage's optimizer
+        slots. ``wire_dtype`` compresses floats on the wire."""
+        header, _ = protocol.unpack(request)
+        self._inject_server_fault("FetchShard")
+        wire = header.get("wire_dtype")
+        opt_stage = header.get("opt_stage")
+        if opt_stage is not None:
+            slots = None
+            if self.worker_plan is not None:
+                slots = self.worker_plan.opt_states.get(int(opt_stage))
+            if slots is None:
+                slots = self.adopted_opt.get(int(opt_stage))
+            if slots is None:
+                return protocol.pack({"found": False})
+            metas, blobs = [], []
+            for slot in slots:
+                meta, blob = protocol.encode_literal(_whole(slot),
+                                                     wire_dtype=wire)
+                metas.append(meta)
+                blobs.append(blob)
+            return protocol.pack_frames({"found": True, "slots": metas},
+                                        blobs)
+        gi = int(header["global_idx"])
+        with self._lock:
+            val = self.variables.get(gi)
+        if val is None:
+            return protocol.pack({"found": False})
+        val = _whole(val)
+        bounds = header.get("bounds")
+        if bounds:
+            val = val[tuple(slice(int(lo), int(hi)) for lo, hi in bounds)]
+        meta, blob = protocol.encode_literal(val, wire_dtype=wire)
+        return protocol.pack_frames({"found": True, "literal": meta},
+                                    [blob])
+
+    def _migration_peer(self, addr: str):
+        """Cached TepdistClient to a live migration or KV-handoff source."""
+        cli = self._migration_peers.get(addr)
+        if cli is None:
+            from tepdist_tpu_torch.rpc.client import TepdistClient
+            cli = self._migration_peers[addr] = TepdistClient(addr)
+        return cli
+
+    def _ckpt_worker_data(self, step: int, worker_id: int, cache: Dict):
+        """Checkpoint-fallback source: one worker's restored dict at the
+        fenced step, loaded once per AdoptShard call."""
+        key = (int(step), int(worker_id))
+        if key not in cache:
+            from tepdist_tpu_torch.runtime.checkpoint import CheckpointUtil
+            data, _ = CheckpointUtil(self.ckpt_dir).restore(
+                int(step), worker_id=int(worker_id))
+            cache[key] = data
+        return cache[key]
+
+    def _adopt_var(self, mv: Dict[str, Any], ckpt_cache: Dict):
+        """One destination shard, assembled from its source pieces
+        (``parallel/redistribution.py``'s plan entry) in a tensor of the
+        move's dtype on this server's device."""
+        srcs = mv["sources"]
+        dst = [(int(a), int(z)) for a, z in mv["dst_bounds"]]
+        out = torch.zeros([z - a for a, z in dst],
+                          dtype=protocol.torch_dtype(mv["dtype"]))
+        for s in srcs:
+            inter = [(int(a), int(z)) for a, z in s["bounds"]]
+            if s.get("addr"):
+                piece = self._migration_peer(s["addr"]).fetch_shard(
+                    int(mv["global_idx"]), bounds=inter,
+                    wire_dtype=mv.get("wire_dtype"))
+                if piece is None:
+                    raise KeyError(
+                        f"migration source {s['addr']} lost var "
+                        f"{mv['global_idx']}")
+            else:
+                data = self._ckpt_worker_data(s["ckpt_step"],
+                                              s["worker_id"], ckpt_cache)
+                full = data[str(mv["global_idx"])]
+                piece = full[tuple(slice(lo, hi) for lo, hi in inter)]
+            out[tuple(slice(lo - a, hi - a) for (lo, hi), (a, _z)
+                      in zip(inter, dst))] = piece.to(out.dtype)
+        return self._to_device(out)
+
+    def _adopt_opt(self, mv: Dict[str, Any], ckpt_cache: Dict):
+        """The source stage's slot list, or None where the source holds
+        no state for it (a stateless optimizer, a stage never stepped):
+        the adopter's lazy opt_init then makes the agreed state."""
+        src_stage = int(mv.get("src_stage", mv["stage"]))
+        if mv.get("addr"):
+            slots = self._migration_peer(mv["addr"]).fetch_shard(
+                opt_stage=src_stage, wire_dtype=mv.get("wire_dtype"))
+        else:
+            data = self._ckpt_worker_data(mv["ckpt_step"], mv["worker_id"],
+                                          ckpt_cache)
+            prefix = f"opt:{src_stage}:"
+            found = {int(k.split(":")[2]): v for k, v in data.items()
+                     if k.startswith(prefix)}
+            slots = [found[j] for j in sorted(found)] if found else None
+        if slots is None:
+            return None
+        return [self._to_device(x) for x in slots]
+
+    def AdoptShard(self, request: bytes, context=None) -> bytes:
+        """Destination side of a live shard move: pull the listed pieces
+        from live peers (nested FetchShard) or the shared checkpoint dir,
+        assemble each destination shard, and install variables and
+        per-stage optimizer slots. Mutating: idem-token deduped.
+
+        Move schema (header["moves"] entries):
+          {"kind": "var", "global_idx": gi, "dst_bounds": [[lo,hi]..],
+           "dtype": name, "wire_dtype": opt, "sources": [
+               {"addr": "ip:port", "bounds": [[lo,hi]..]} |
+               {"ckpt_step": N, "worker_id": w, "bounds": [[lo,hi]..]}]}
+          {"kind": "opt", "stage": s, "src_stage": s_old,
+           "addr": ... | "ckpt_step"/"worker_id": ..., "wire_dtype": opt}
+        """
+        header, _ = protocol.unpack(request)
+        self._check_epoch(header)
+        cached = self._idem_get(header)
+        if cached is not None:
+            return cached
+        self._inject_server_fault("AdoptShard")
+        ckpt_cache: Dict = {}
+        adopted = 0
+        for mv in header.get("moves", ()):
+            if mv["kind"] == "var":
+                val = self._adopt_var(mv, ckpt_cache)
+                with self._lock:
+                    self.variables[int(mv["global_idx"])] = val
+            elif mv["kind"] == "opt":
+                slots = self._adopt_opt(mv, ckpt_cache)
+                if slots is not None:
+                    # Staged for the migration's DispatchPlan carry merge,
+                    # and mirrored into a live plan.
+                    self.adopted_opt[int(mv["stage"])] = slots
+                    if self.worker_plan is not None:
+                        self.worker_plan.opt_states[int(mv["stage"])] = slots
+            else:
+                raise ValueError(f"unknown move kind {mv['kind']!r}")
+            adopted += 1
+        metrics().counter("shards_adopted").inc(adopted)
+        log.info("AdoptShard: %d moves (migration %s)", adopted,
+                 header.get("migration_id", "?"))
+        return self._idem_put(header, protocol.pack(
+            {"ok": True, "adopted": adopted,
+             "migration_id": header.get("migration_id", "")}))
+
+    # -- single-engine servables ----------------------------------------
+    def _servable(self, sid: str):
+        eng = self.servables.get(sid)
+        if eng is None:
+            raise ValueError(f"unknown servable {sid!r} "
+                             f"(loaded: {sorted(self.servables)})")
+        return eng
+
+    def LoadServable(self, request: bytes, context=None) -> bytes:
+        """Ship a model (config spec + flat param leaves in tree order)
+        and start its SUPERVISED continuous-batching engine
+        (``serving/supervisor.py``). Idempotent: a replayed load answers
+        with the original servable id."""
+        header, blobs = protocol.unpack(request)
+        self._check_epoch(header)
+        cached = self._idem_get(header)
+        if cached is not None:
+            return cached
+        self._inject_server_fault("LoadServable")
+        if header.get("stage") is not None:
+            raise NotImplementedError(
+                "a pipeline-stage servable comes with ROADMAP item 17 "
+                "(fleet serving)")
+        from tepdist_tpu_torch.models import gpt2
+        from tepdist_tpu_torch.serving.kv_cache import config_from_spec
+        from tepdist_tpu_torch.serving.supervisor import ServingSupervisor
+
+        cfg = config_from_spec(header["config"])
+        leaves = [self._to_device(protocol.decode_literal(m, blobs[i]))
+                  for i, m in enumerate(header["params_meta"])]
+        # The param tree's structure depends on the depth alone: a
+        # one-wide model of the same depth gives it.
+        import dataclasses
+        template = gpt2.init_params(dataclasses.replace(
+            cfg, n_embd=cfg.n_head, vocab_size=1, n_ctx=1), device="cpu")
+        params = tree_unflatten(tree_structure(template), leaves)
+        with self._lock:
+            sid = f"sv{self._servable_next}"
+            self._servable_next += 1
+        name = header.get("name") or sid
+        kv_mode = header.get("kv_mode", "paged")
+        page_size = int(header.get("page_size", 16))
+        from tepdist_tpu_torch.analysis.plan_verify import (verify_enabled,
+                                                            verify_servable)
+        if verify_enabled():
+            # Pre-load gate: a servable whose KV plan cannot fit is
+            # refused before anything compiles.
+            from tepdist_tpu_torch.serving.kv_cache import default_buckets
+            v_slots = int(header.get("slots", 4))
+            v_max_len = int(header.get("max_len") or cfg.n_ctx)
+            v_buckets = sorted({min(int(b), v_max_len) for b in
+                                (header.get("buckets")
+                                 or default_buckets(v_max_len))})
+            v_pages = None
+            if kv_mode == "paged":
+                from tepdist_tpu_torch.serving.paged_kv import (
+                    derive_n_pages)
+                v_pages = derive_n_pages(
+                    cfg, page_size=page_size, max_len=v_max_len,
+                    slots=v_slots, n_pages=header.get("n_pages"),
+                    hbm_budget_bytes=header.get("hbm_budget_bytes"))
+            verify_servable(cfg, slots=v_slots, max_len=v_max_len,
+                            buckets=v_buckets, kv_mode=kv_mode,
+                            page_size=page_size, n_pages=v_pages,
+                            where=f"LoadServable@{self.task_index}")
+        eng = ServingSupervisor(
+            params, cfg, slots=int(header.get("slots", 4)),
+            max_len=header.get("max_len"),
+            buckets=header.get("buckets"),
+            max_queue=int(header.get("max_queue", 64)),
+            name=f"{name}@{self.task_index}",
+            task_index=self.task_index,
+            max_restarts=int(header.get("max_restarts", 3)),
+            shed_high=header.get("shed_high"),
+            shed_low=header.get("shed_low"),
+            kv_mode=kv_mode, page_size=page_size,
+            n_pages=header.get("n_pages"),
+            hbm_budget_bytes=header.get("hbm_budget_bytes"),
+            prefix_cache=bool(header.get("prefix_cache", True)),
+            prefill_chunk=header.get("prefill_chunk"),
+            device=self.device)
+        eng.start()
+        self.servables[sid] = eng
+        log.info("LoadServable %s: %s", sid, eng.stats())
+        return self._idem_put(header, protocol.pack(
+            {"ok": True, "servable_id": sid, **eng.stats()}))
+
+    def SubmitRequest(self, request: bytes, context=None) -> bytes:
+        """Enqueue one generation request. Two dedup layers: the idem
+        response cache and the engine's request-id dedup."""
+        header, blobs = protocol.unpack(request)
+        self._check_epoch(header)
+        cached = self._idem_get(header)
+        if cached is not None:
+            return cached
+        self._inject_server_fault("SubmitRequest")
+        eng = self._servable(header["servable_id"])
+        prompt = protocol.decode_literal(header["prompt"], blobs[0]).numpy()
+        out = eng.submit(
+            header["request_id"], prompt,
+            max_new_tokens=int(header["max_new_tokens"]),
+            greedy=bool(header.get("greedy", True)),
+            temperature=float(header.get("temperature", 1.0)),
+            top_k=int(header.get("top_k", 0)),
+            seed=int(header.get("seed", 0)),
+            deadline_ms=header.get("deadline_ms"),
+            slo_class=str(header.get("slo_class", "default")),
+            prefill_only=bool(header.get("prefill_only", False)))
+        return self._idem_put(header, protocol.pack({"ok": True, **out}))
+
+    def PollResult(self, request: bytes, context=None) -> bytes:
+        """Long-poll request states (a pure read); generated tokens ride
+        in the JSON header."""
+        header, _ = protocol.unpack(request)
+        self._inject_server_fault("PollResult")
+        eng = self._servable(header["servable_id"])
+        results = eng.poll(header.get("request_ids"),
+                           wait_ms=float(header.get("wait_ms", 0.0)))
+        return protocol.pack({"ok": True, "results": results})
+
+    def CancelRequest(self, request: bytes, context=None) -> bytes:
+        header, _ = protocol.unpack(request)
+        self._check_epoch(header)
+        cached = self._idem_get(header)
+        if cached is not None:
+            return cached
+        self._inject_server_fault("CancelRequest")
+        eng = self._servable(header["servable_id"])
+        ok = eng.cancel(header["request_id"])
+        return self._idem_put(header,
+                              protocol.pack({"ok": True, "cancelled": ok}))
+
+    def Drain(self, request: bytes, context=None) -> bytes:
+        """Graceful drain: admission stops, resident slots finish (up to
+        ``wait_ms``), and every un-started queued request comes back as a
+        resubmittable spec. Idempotent: a replay answers with the
+        ORIGINAL handoff list."""
+        header, _ = protocol.unpack(request)
+        self._check_epoch(header)
+        cached = self._idem_get(header)
+        if cached is not None:
+            return cached
+        self._inject_server_fault("Drain")
+        eng = self._servable(header["servable_id"])
+        handed = eng.drain(wait_ms=float(header.get("wait_ms", 0.0)))
+        return self._idem_put(header, protocol.pack(
+            {"ok": True, "handed_off": handed}))
+
+    def ExportPages(self, request: bytes, context=None) -> bytes:
+        """Prefill side of the paged KV handoff. Gather mode is a pure
+        read (``want`` selects live-page ordinals; ``wire_dtype``
+        compresses); ``release`` flips the parked request to
+        "handed_off" and frees its pages (state-idempotent)."""
+        header, _ = protocol.unpack(request)
+        self._inject_server_fault("ExportPages")
+        eng = self._servable(header["servable_id"])
+        rid = header["request_id"]
+        if header.get("release"):
+            ok = eng.complete_handoff(rid)
+            return protocol.pack({"ok": True, "released": bool(ok)})
+        out = eng.export_pages(rid, want=header.get("want"))
+        if out is None:
+            return protocol.pack({"found": False})
+        wire = header.get("wire_dtype")
+        k_meta, k_blob = protocol.encode_literal(out["k"], wire_dtype=wire)
+        v_meta, v_blob = protocol.encode_literal(out["v"], wire_dtype=wire)
+        return protocol.pack_frames(
+            {"found": True, "first_token": int(out["first_token"]),
+             "pos": int(out["pos"]), "n_live": int(out["n_live"]),
+             "idx": [int(i) for i in out["idx"]], "k": k_meta,
+             "v": v_meta}, [k_blob, v_blob])
+
+    def AdoptPages(self, request: bytes, context=None) -> bytes:
+        """Decode side of the paged KV handoff: pull the request's live KV
+        pages from the prefill replica (nested ExportPages), install them
+        and resume decode from the prefill's first token. Mutating:
+        idem-token deduped, with the engine's rid dedup behind it."""
+        header, blobs = protocol.unpack(request)
+        self._check_epoch(header)
+        cached = self._idem_get(header)
+        if cached is not None:
+            return cached
+        self._inject_server_fault("AdoptPages")
+        eng = self._servable(header["servable_id"])
+        prompt = protocol.decode_literal(header["prompt"], blobs[0]).numpy()
+        src = self._migration_peer(header["source_addr"])
+        src_sid = header["source_sid"]
+        rid = header["request_id"]
+        wire = header.get("wire_dtype")
+
+        def fetch(want):
+            return src.export_pages(src_sid, rid, want=want,
+                                    wire_dtype=wire)
+
+        out = eng.adopt_pages(
+            rid, prompt, fetch=fetch,
+            max_new_tokens=int(header["max_new_tokens"]),
+            greedy=bool(header.get("greedy", True)),
+            temperature=float(header.get("temperature", 1.0)),
+            top_k=int(header.get("top_k", 0)),
+            seed=int(header.get("seed", 0)),
+            deadline_ms=header.get("deadline_ms"),
+            slo_class=str(header.get("slo_class", "default")))
+        return self._idem_put(header,
+                              protocol.pack({"ok": True, **out}))
+
+    def close_servables(self) -> None:
+        """Stop every serving engine (drain by default: admission stops
+        and resident slots finish within the stop timeout)."""
+        for eng in list(self.servables.values()):
+            eng.stop(drain=True)
+        self.servables.clear()
+
 
 def _later_verb(name: str, item: str):
     def verb(self, request: bytes, context=None) -> bytes:
@@ -953,6 +1580,26 @@ def _later_verb(name: str, item: str):
 
 for _name, _item in LATER_VERBS.items():
     setattr(TepdistServicer, _name, _later_verb(_name, _item))
+
+
+def _on_device(verb):
+    """A verb run with the server's card as the calling thread's current
+    device: handlers run on transport threads (gRPC's pool, a caller's
+    thread in process), whose current card is card 0, and NCCL binds a
+    rank's collectives to its own card."""
+    def handler(self, request: bytes, context=None):
+        if self.device.type != "cuda":
+            return verb(self, request, context)
+        with torch.cuda.device(self.device):
+            return verb(self, request, context)
+    handler.__name__ = verb.__name__
+    handler.__doc__ = verb.__doc__
+    return handler
+
+
+for _name in protocol.METHODS:
+    setattr(TepdistServicer, _name,
+            _on_device(getattr(TepdistServicer, _name)))
 
 
 def create_server(port: int, devices=None, task_index: int = 0,
@@ -991,11 +1638,36 @@ def create_server(port: int, devices=None, task_index: int = 0,
     return server, servicer, bound
 
 
+def init_world(coordinator_address: str, num_processes: int, rank: int,
+               device: torch.device) -> None:
+    """A multi-rank server's world (the reference's
+    ``jax.distributed.initialize``): NCCL with the rank bound to its
+    indexed card, or gloo on the CPU, over ``tcp://`` at the coordinator
+    address."""
+    import datetime
+
+    import torch.distributed as dist
+
+    cuda = device.type == "cuda"
+    dist.init_process_group(
+        "nccl" if cuda else "gloo",
+        init_method=f"tcp://{coordinator_address}", rank=rank,
+        world_size=num_processes, timeout=datetime.timedelta(minutes=5),
+        **({"device_id": device} if cuda else {}))
+    log.info("torch.distributed: rank %d/%d on %s", rank, num_processes,
+             device)
+
+
 def main() -> None:
     """Server binary (reference: grpc_service_gpu ``RealMain`` with flags
     --platform --ip --port --task_index, rpc/grpc_service_gpu.cc:32-81).
 
         python -m tepdist_tpu_torch.rpc.server --port N [--device cpu|cuda]
+            [--coordinator_address HOST:PORT --num_processes N]
+
+    With ``--coordinator_address`` the server is rank ``--task_index`` of
+    a world of ``--num_processes`` ranks (one a card: rank r on card
+    r modulo the cards present) that a multi-host session drives.
     """
     parser = argparse.ArgumentParser("tepdist_server")
     parser.add_argument("--port", type=int, default=2222)
@@ -1003,9 +1675,23 @@ def main() -> None:
     parser.add_argument("--device", default="cuda",
                         help="the server's device: cuda (the card, the "
                              "default) or cpu")
+    parser.add_argument("--coordinator_address", default="",
+                        help="host:port of the process group's rendezvous "
+                             "(a multi-rank server)")
+    parser.add_argument("--num_processes", type=int, default=1)
     args = parser.parse_args()
     logging.basicConfig(level=logging.INFO)
-    server, _, bound = create_server(args.port, devices=[args.device],
+    device = args.device
+    if args.coordinator_address:
+        dev = resolve_device(args.device)
+        if dev.type == "cuda":
+            dev = torch.device(
+                "cuda", args.task_index % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
+        device = dev
+        init_world(args.coordinator_address, args.num_processes,
+                   args.task_index, dev)
+    server, _, bound = create_server(args.port, devices=[device],
                                      task_index=args.task_index)
     server.start()
     print(f"tepdist server listening on {bound}", flush=True)

@@ -179,18 +179,6 @@ def _flat_range_boxes(shape: Sequence[int], a: int, b: int
     return boxes
 
 
-def stage_tp_over_nccl() -> bool:
-    """Whether stage x TP would run over NCCL: a process group whose
-    backend is NCCL, or, with none, a visible card (the entry points'
-    default device). Its first step hangs there (ROADMAP C8), so the
-    executor refuses it and the exploration does not propose it."""
-    import torch.distributed as dist
-
-    if dist.is_initialized():
-        return "nccl" in str(dist.get_backend()).lower()
-    return torch.cuda.is_available()
-
-
 def stage_replicas(n_devices: int, num_stages: int, intra_stage_tp: int = 1,
                    placement: str = "blocked",
                    interleave_groups: Optional[int] = None) -> int:
@@ -283,11 +271,6 @@ class PipelineExecutable:
                 f"intra_stage_tp={tp}: tensor parallelism needs one rank a "
                 "device (a process group of one rank per device); one "
                 "process cannot hold the ranks of a TP group")
-        if tp > 1 and stage_tp_over_nccl():
-            raise ValueError(
-                f"intra_stage_tp={tp} over NCCL: stage x TP hangs in its "
-                "first step across NCCL cards (ROADMAP C8); it runs over "
-                "gloo ranks only")
         dp = per // tp
         self.num_groups, self.per, self.tp, self.dp = G, per, tp, dp
         self.intra_dp = dp > 1

@@ -50,9 +50,13 @@ first delivery, and carried results are LRU-capped at ``completed_cap``
 exactly-once guarantees hold; past it, a replayed submit of an ancient
 rid is a fresh request.
 
-The JAX supervisor's control-plane journal (``wal=``, ``rebuild_from_wal``)
-needs the control plane, which the port does not have yet; this
-supervisor keeps its journal in memory only.
+Control-plane journal: pass ``wal=`` (a ControlPlaneWAL) and
+every serving-journal transition — admit / finish / deliver (terminal
+status) / handoff — is appended to the master's durable WAL.
+``rebuild_from_wal`` then reconstructs a supervisor after a master
+crash: non-terminal requests replay under their ORIGINAL rids (greedy
+continuations bit-identical, seeded sampling regenerated from the
+seed), terminal-but-undelivered ones re-run and deliver exactly once.
 
 Counters: ``engine_restarts``, ``requests_replayed``, ``serve_shed``,
 ``serve_retention_expired`` (plus everything the engine already emits).
@@ -61,6 +65,7 @@ Counters: ``engine_restarts``, ``requests_replayed``, ``serve_shed``,
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import logging
 import threading
 import time
@@ -114,7 +119,7 @@ class ServingSupervisor:
                  prefill_chunk: Optional[int] = None,
                  completed_cap: int = 1024,
                  completed_ttl_s: float = 900.0,
-                 device="cuda"):
+                 wal=None, device="cuda"):
         self._params = params
         self._cfg = cfg
         # A rebuilt engine gets the SAME paged-KV geometry, so replay
@@ -151,6 +156,8 @@ class ServingSupervisor:
         self._delivered: Dict[str, float] = {}
         self.completed_cap = int(completed_cap)
         self.completed_ttl_s = float(completed_ttl_s)
+        self._wal = wal
+        self._serve_seq = itertools.count()
         self._shedding = False
         self._threaded = False
         self.restarts = 0
@@ -178,6 +185,21 @@ class ServingSupervisor:
             self._journal.pop(rid, None)
         if drop:
             metrics().counter("serve_retention_expired").inc(len(drop))
+
+    # -- control-plane journal hooks ------------------------------------
+    def _wal_serve(self, rid: str, event: str, **fields: Any) -> None:
+        if self._wal is None:
+            return
+        from tepdist_tpu_torch.runtime import controlplane
+        try:
+            controlplane.log_serve(self._wal, rid, event, **fields)
+        except Exception:  # noqa: BLE001 — journal loss must not fail
+            log.exception("serving WAL append failed (%s %s)", rid, event)
+
+    _STATUS_EVENT = {"done": "delivered", "drained": "delivered",
+                     "cancelled": "cancelled", "failed": "failed",
+                     "rejected": "failed", "expired": "expired",
+                     "handed_off": "handoff"}
 
     # -- engine lifecycle ----------------------------------------------
     def _make_engine(self, old: Optional[ServingEngine] = None
@@ -263,6 +285,13 @@ class ServingSupervisor:
                     slo_class=str(kwargs.get("slo_class", "default")),
                     prefill_only=bool(kwargs.get("prefill_only", False)))
                 self._journal[rid] = e
+                self._wal_serve(
+                    rid, "admit", seq=next(self._serve_seq),
+                    prompt=[int(t) for t in e.prompt],
+                    max_new_tokens=e.max_new_tokens, greedy=e.greedy,
+                    temperature=e.temperature, top_k=e.top_k,
+                    seed=e.seed, deadline_ms=e.deadline_ms,
+                    slo_class=e.slo_class, prefill_only=e.prefill_only)
             return out
 
     def cancel(self, rid: str) -> bool:
@@ -310,6 +339,12 @@ class ServingSupervisor:
                     flight.record(rid, "deliver",
                                   status=r.get("status"),
                                   n_tokens=r.get("n_tokens", 0))
+                    if rid in self._journal:   # shed/unknown: not ours
+                        st = r.get("status")
+                        self._wal_serve(
+                            rid,
+                            self._STATUS_EVENT.get(st, "delivered"),
+                            n_tokens=r.get("n_tokens", 0))
             return out
 
     def poll(self, rids: Optional[Sequence[str]] = None,
@@ -384,6 +419,9 @@ class ServingSupervisor:
                                                      "duplicate"):
             with self._lock:
                 self._journal.pop(rid, None)
+        elif fresh_entry and out.get("status") == "adopted":
+            self._wal_serve(rid, "handoff", seq=next(self._serve_seq),
+                            adopted=True)
         return out
 
     # -- recovery -------------------------------------------------------
@@ -433,6 +471,11 @@ class ServingSupervisor:
                     self._completed[r.rid] = res
                     flight.record(r.rid, "carry", gen=self.restarts,
                                   status=res.get("status"))
+                    # Finished but not yet delivered: non-terminal in the
+                    # control-plane journal, so a master rebuilt from the
+                    # WAL re-runs it and delivers exactly once.
+                    self._wal_serve(r.rid, "finish",
+                                    status=res.get("status"))
                     continue
                 if e is None:      # pragma: no cover — journal invariant
                     continue
@@ -492,6 +535,41 @@ class ServingSupervisor:
                 return
             self.step()
         raise RuntimeError("run_until_idle: scheduler did not drain")
+
+    # -- master-crash rebuild ------------------------------------------
+    @classmethod
+    def rebuild_from_wal(cls, params, cfg: GPT2Config, state, *,
+                         wal=None, **kwargs) -> "ServingSupervisor":
+        """Reconstruct a supervisor from a replayed control-plane state
+        (``controlplane.replay(wal_dir)`` or a ControlPlaneState): every
+        NON-terminal journaled request — admitted, finished-but-
+        undelivered, or mid-handoff — is resubmitted under its ORIGINAL
+        rid, in admission order. Greedy requests re-prefill and continue
+        bit-identically; seeded sampling regenerates deterministically
+        from the journaled seed; already-delivered/cancelled/failed rids
+        are NOT replayed (exactly-once delivery across master crashes).
+        ``wal``: the new master's re-opened ControlPlaneWAL, so replayed
+        admissions are journaled under the new epoch."""
+        if isinstance(state, str):
+            from tepdist_tpu_torch.runtime import controlplane
+            state = controlplane.replay(state)
+        sup = cls(params, cfg, wal=wal, **kwargs)
+        for rid, ent in state.pending_serving():
+            prompt = np.asarray(ent.get("prompt", []), np.int32)
+            out = sup.submit(
+                rid, prompt,
+                max_new_tokens=int(ent.get("max_new_tokens", 16)),
+                greedy=bool(ent.get("greedy", True)),
+                temperature=float(ent.get("temperature", 1.0)),
+                top_k=int(ent.get("top_k", 0)),
+                seed=int(ent.get("seed", 0)),
+                deadline_ms=ent.get("deadline_ms"),
+                slo_class=str(ent.get("slo_class", "default")),
+                prefill_only=bool(ent.get("prefill_only", False)))
+            metrics().counter("requests_replayed").inc()
+            flight.record(rid, "replay", gen=-1, prefix=0,
+                          status=out.get("status"))
+        return sup
 
     # -- introspection ---------------------------------------------------
     def stats(self) -> Dict[str, Any]:

@@ -3,8 +3,9 @@ ml_dtypes (the card's machine has none): every module of
 tepdist_tpu_torch, and chip_smoke.py, imported in a fresh interpreter (the
 pytest process has jax loaded already); the telemetry, serving and graph
 packages each imported alone; and each module of the planner and of the
-service (the wire, the server, the client and the session) imported
-alone. No module imports grpc when it is imported (the card's machine has
+service (the wire, the server, the client and the session) and of the
+fleet (workers, the multi-host and serving clients, migration, the
+control plane, the distributed executor) imported alone. No module imports grpc when it is imported (the card's machine has
 no grpcio): only the functions that open a channel or a server do."""
 
 import os
@@ -108,7 +109,18 @@ sys.exit(1 if bad else 0)
     "tepdist_tpu_torch.rpc.client", "tepdist_tpu_torch.rpc.worker_plan",
     "tepdist_tpu_torch.rpc.server", "tepdist_tpu_torch.runtime.health",
     "tepdist_tpu_torch.client.annotations",
-    "tepdist_tpu_torch.client.session"])
+    "tepdist_tpu_torch.client.session",
+    # Workers, the multi-host client, the serving client and the fleet.
+    "tepdist_tpu_torch.runtime.coordinator",
+    "tepdist_tpu_torch.client.multihost",
+    "tepdist_tpu_torch.serving.client",
+    "tepdist_tpu_torch.runtime.variable_specs",
+    "tepdist_tpu_torch.runtime.slice_utils",
+    "tepdist_tpu_torch.runtime.dist_buffer",
+    "tepdist_tpu_torch.parallel.redistribution",
+    "tepdist_tpu_torch.runtime.migration",
+    "tepdist_tpu_torch.runtime.controlplane",
+    "tepdist_tpu_torch.runtime.distributed_executor"])
 def test_planner_module_imports_no_jax(module):
     """Each module of the planner (both parts) and of the service imported
     alone in a fresh interpreter."""

@@ -160,26 +160,59 @@ def case_pipeline(rank, spec):
     return _run(spec)
 
 
-def case_tp_over_nccl(rank, spec):
-    """The executor's refusal of stage x TP on an NCCL world (ROADMAP
-    C8), seen here by reporting the world's backend as NCCL: every rank
-    raises before it issues any collective."""
-    from unittest import mock
+def case_embedding_split_tokens(rank, spec):
+    """GPT-2's embedding (``gpt2._embed``: ``F.embedding`` + positions) on
+    a 2-rank ``model`` mesh at the card's shape for stage x TP (1.5B
+    width, seq 1024, one row a micro batch; vocab cut for time), with the
+    token ids split on the sequence dim and the table replicated: the ops
+    DTensor runs (recorded by a dispatch mode), the table gradient's
+    placement, and the gradient against the same function on one rank."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.utils._python_dispatch import TorchDispatchMode
 
-    from tepdist_tpu_torch.parallel.pipeline import plan_pipeline
-    from tepdist_tpu_torch.runtime.executor import PipelineExecutable
+    from tepdist_tpu_torch.models import gpt2
 
-    params, batch = _to_torch(spec["params"]), _to_torch(spec["batch"])
-    prog = plan_pipeline(_torch_loss(spec["model"]), spec["S"], spec["M"],
-                         params, *batch)
-    with mock.patch("torch.distributed.get_backend", return_value="nccl"):
-        try:
-            PipelineExecutable(prog, devices=["cpu"] * 4,
-                               optimizer=_optimizer(spec["opt"]),
-                               intra_stage_tp=2)
-        except ValueError as e:
-            return str(e)
-    return None
+    vocab, T, d = spec
+    cfg = dataclasses.replace(gpt2.CONFIGS["1.5B"], vocab_size=vocab,
+                              n_layer=1, dtype=torch.float32)
+    mesh = init_device_mesh("cpu", (2, 2),
+                            mesh_dim_names=("pair", "model"))["model"]
+    gen = torch.Generator().manual_seed(0)
+    wte = torch.randn(vocab, d, generator=gen) * 0.02
+    wpe = torch.randn(cfg.n_ctx, d, generator=gen) * 0.01
+    tokens = torch.randint(0, vocab, (1, T), generator=gen,
+                           dtype=torch.int32)
+    w = torch.randn(1, T, d, generator=gen)
+
+    def loss(params, tok, weight):
+        return (gpt2._embed(params, tok, cfg) * weight).sum()
+
+    ref = wte.clone().requires_grad_()
+    want = torch.autograd.grad(loss({"wte": ref, "wpe": wpe}, tokens, w),
+                               ref)[0]
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    table = distribute_tensor(wte, mesh, [Replicate()]).requires_grad_()
+    params = {"wte": table,
+              "wpe": distribute_tensor(wpe, mesh, [Replicate()])}
+    split_tok = distribute_tensor(tokens, mesh, [Shard(1)])
+    split_w = distribute_tensor(w, mesh, [Shard(1)])
+    with Ops() as ops:
+        got = torch.autograd.grad(loss(params, split_tok, split_w),
+                                  table)[0]
+    return {"ops": sorted(set(ops.names)),
+            "placements": [(type(p).__name__, getattr(p, "reduce_op", None))
+                           for p in got.placements],
+            "grad": got.full_tensor().numpy(), "want": want.numpy()}
 
 
 def case_flash_uneven_split(rank, spec):
@@ -463,14 +496,22 @@ def test_group_form_matches_jax(pool, name):
     assert got["losses"][1] < got["losses"][0]
 
 
-def test_stage_tp_over_nccl_raises(pool):
-    """On an NCCL world stage x TP raises a ValueError naming ROADMAP C8
-    (its first step hangs across cards), never a hang."""
-    params, batch = _mlp4_data()
-    msg = pool.run("tp_over_nccl", {"model": "mlp4", "params": params,
-                                    "batch": batch, "S": 2, "M": 4,
-                                    "opt": "sgd"})
-    assert msg is not None and "C8" in msg, msg
+def test_embedding_backward_partial_on_split_tokens(pool):
+    """The repair of ROADMAP C8's second cause: GPT-2's token lookup is
+    ``F.embedding``, so DTensor runs its backward as
+    ``embedding_dense_backward`` (no ``index_put``, whose propagation
+    failed across the cards), and with split token ids the table's
+    gradient comes out ``Partial`` (a sum over the ranks, GSPMD's
+    scatter-add). At the card's stage x TP shape (1.5B width, seq 1024,
+    one row a micro batch, vocab 1001) the gradient equals the one-rank
+    gradient within rtol 1e-5, atol 1e-7 (fp32; the sum over ranks only
+    reorders it)."""
+    got = pool.run("embedding_split_tokens", (1001, 1024, 1600))
+    assert "aten.embedding_dense_backward.default" in got["ops"], got["ops"]
+    assert not [op for op in got["ops"] if "index_put" in op], got["ops"]
+    assert got["placements"] == [("Partial", "sum")], got["placements"]
+    np.testing.assert_allclose(got["grad"], got["want"], rtol=1e-5,
+                               atol=1e-7)
 
 
 def test_flash_split_only_where_it_divides(pool):

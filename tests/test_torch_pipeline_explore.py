@@ -92,11 +92,11 @@ def test_pipeline_candidates_match_reference():
             w[k].total_duration, rel=COST_RTOL), k
 
 
-def test_stage_tp_not_proposed_where_it_would_run_over_nccl(monkeypatch):
-    """Where the plan would run on cards (NCCL), the stage cuts with
-    intra-stage TP are not proposed (their first step hangs there, ROADMAP
-    C8): each is a typed prune record naming C8, and every other proposal
-    stays as it is."""
+def test_stage_tp_proposed_where_a_card_is_visible(monkeypatch):
+    """Stage x TP runs across NCCL cards (ROADMAP C8, resolved), so where
+    the plan would run on cards the stage cuts with intra-stage TP are
+    proposed as they are everywhere else: the same proposals, tp = 2 and
+    tp = 4 among them, and no prune naming C8."""
     from tepdist_tpu_torch.telemetry import observatory
 
     TEnv.reset({"TPU_GENERATION": "cpu"})
@@ -108,10 +108,9 @@ def test_stage_tp_not_proposed_where_it_would_run_over_nccl(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with observatory.capture("test") as col:
         on_cards = {_key(c) for c in texp.pipeline_candidates(*args)}
-    assert on_cards == {k for k in everywhere if k[2] == 1}
-    c8 = [p for p in col.prunes if "C8" in p.message]
-    assert {p.config.split()[-1] for p in c8} == {"tp=2", "tp=4"}
-    assert all(p.reason == "enumeration_skip" for p in c8)
+    assert on_cards == everywhere
+    assert {k[2] for k in on_cards} >= {1, 2, 4}
+    assert not [p for p in col.prunes if "C8" in p.message]
 
 
 def test_deep_skinny_winner_is_a_pipeline_winner():

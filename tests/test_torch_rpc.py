@@ -393,13 +393,14 @@ def test_later_verbs_name_their_items():
 
 
 def test_plan_over_more_ranks_than_the_server_names_15b():
-    """An SPMD plan over more devices than the server's one rank runs
-    across processes (the multi-host client, item 15b): refused, never
-    run on a smaller mesh."""
+    """An SPMD plan over more devices than the server's world runs one
+    rank a device, across the ranks of a multi-rank server (the
+    multi-host client, item 15b): on a server of one rank it is refused,
+    never run on a smaller mesh."""
     address, _ = _servicer()
     params, x, y = _mlp_np(batch=32)
     sess = TepdistSession(address, mesh_axes=[("data", 2)])
-    with pytest.raises(retry.ServerError, match="15b"):
+    with pytest.raises(retry.ServerError, match="world has 1 rank"):
         sess.compile_training(_torch_mlp_loss, sgd(0.1), _t(params),
                               _t(x), _t(y))
     sess.close()

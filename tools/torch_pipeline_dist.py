@@ -16,14 +16,15 @@ batch 48 x 1024, M = 8) and trains ``--steps`` steps through
 - ``dp_zero``: the same with ZeRO (``PipelineWinner(zero=True).build``);
 - ``s4``: 4 stages, one card each (blocked);
 - ``tp`` (named only): 2 stages x ``intra_stage_tp=2`` at
-  ``--tp-layers`` deep (each stage a DTensor program on its ``model``
+  ``--tp-layers`` deep, in fp32 against an fp32 reference at
+  ``TP_LOSS_RTOL`` (each stage a DTensor program on its ``model``
   sub-mesh; its planner's ILP on a 24-layer stage would take the call's
-  time). Over NCCL the executor refuses it with a ``ValueError`` (ROADMAP
-  C8); ``--device cpu`` runs it over gloo.
+  time). It failed across NCCL cards until the GPT-2 token lookup became
+  ``F.embedding`` (ROADMAP C8, resolved).
 
 A rank that raises prints its traceback and leaves at once: over NCCL its
 peers would wait for it, and so would ``destroy_process_group``, which
-hid the cause of a failure as a hang (ROADMAP C8).
+hid the cause of a failure as a hang.
 
 Each rank's losses (and their largest relative difference) are held to
 a one-card reference of the same recipe and depth, run first by the
@@ -72,7 +73,14 @@ def _emit(obj) -> None:
         f.write(line + "\n")
 
 
-def _config(args, layers):
+# The ``tp`` case runs in fp32 and is held to the loss tolerance of the
+# gloo stage x TP test (``tests/test_torch_pipeline_dist.py``'s
+# ``LOSS_RTOL``): across ranks the ``model`` axis sums each split matmul
+# in another order, which bf16 would round far past it.
+TP_LOSS_RTOL = 1e-5
+
+
+def _config(args, layers, dtype=None):
     import torch
 
     from tepdist_tpu_torch.models import gpt2
@@ -81,8 +89,9 @@ def _config(args, layers):
         return dataclasses.replace(
             gpt2.CONFIGS["test"], n_layer=4, attn="flash", remat=True,
             loss_chunk=64, dtype=torch.float32)
-    return dataclasses.replace(gpt2.CONFIGS["1.5B"], n_layer=layers,
-                               attn="flash", remat=True, loss_chunk=512)
+    cfg = dataclasses.replace(gpt2.CONFIGS["1.5B"], n_layer=layers,
+                              attn="flash", remat=True, loss_chunk=512)
+    return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
 
 
 def _batch(args, cfg, device):
@@ -172,11 +181,15 @@ def _hops(exe, device, cfg, args):
 
 
 def _cases(args):
-    """(name, depth, plan keywords) of the cases ``--cases`` names."""
-    cases = (("dp", args.layers, dict(num_stages=2)),
-             ("dp_zero", args.layers, dict(num_stages=2, zero=True)),
-             ("s4", args.layers, dict(num_stages=4)),
-             ("tp", args.tp_layers, dict(num_stages=2, intra_stage_tp=2)))
+    """(name, (depth, dtype), plan keywords) of the cases ``--cases``
+    names; dtype None is the config's own (bf16)."""
+    import torch
+
+    cases = (("dp", (args.layers, None), dict(num_stages=2)),
+             ("dp_zero", (args.layers, None), dict(num_stages=2, zero=True)),
+             ("s4", (args.layers, None), dict(num_stages=4)),
+             ("tp", (args.tp_layers, torch.float32),
+              dict(num_stages=2, intra_stage_tp=2)))
     return [c for c in cases if c[0] in args.cases.split(",")]
 
 
@@ -204,29 +217,36 @@ def _worker(rank, world, port, args, refs):
                             **({"device_id": device} if cuda else {}))
     try:
         failed = []
-        for name, layers, kw in _cases(args):
-            cfg = _config(args, layers)
+        for name, key, kw in _cases(args):
+            cfg = _config(args, *key)
+            rtol = TP_LOSS_RTOL if name == "tp" else cs.PIPELINE_LOSS_RTOL
             if cuda:
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats(device)
             losses, seconds, exe = _train(args, cfg, device,
                                           [device] * world, **kw)
-            ref = refs[layers]["losses"]
+            ref = refs[key]["losses"]
             rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
             ok = (all(math.isfinite(x) for x in losses)
-                  and max(rel) <= cs.PIPELINE_LOSS_RTOL)
+                  and max(rel) <= rtol)
             hops = _hops(exe, device, cfg, args) if name == "s4" else None
             peak = (torch.cuda.max_memory_allocated(device) if cuda
                     else None)
             per_rank = [None] * world
             dist.all_gather_object(per_rank, {
                 "losses": losses, "ok": ok, "coord": exe._coord,
+                # Stage inputs the TP planner split over ``model``.
+                "split": [sum(1 for p in specs
+                              if type(p[-1]).__name__ == "Shard")
+                          for specs in exe._tp_in_specs
+                          if specs is not None],
                 "max_loss_rel_diff": max(rel),
                 "peak_bytes": peak, "step_seconds": seconds})
             if rank == 0:
                 steady = seconds[1:] or seconds
                 _emit({"tool": "torch_pipeline_dist", "case": name,
                        "n_layer": cfg.n_layer, "n_embd": cfg.n_embd,
+                       "dtype": str(cfg.dtype),
                        "ranks": world, "device": args.device,
                        "num_stages": kw["num_stages"], "dp": exe.dp,
                        "tp": exe.tp, "zero": exe.zero,
@@ -239,8 +259,8 @@ def _worker(rank, world, port, args, refs):
                            sorted(steady)[len(steady) // 2],
                        "reference_losses": ref,
                        "reference_step_seconds":
-                           refs[layers]["step_seconds"],
-                       "loss_rtol": cs.PIPELINE_LOSS_RTOL,
+                           refs[key]["step_seconds"],
+                       "loss_rtol": rtol,
                        "per_rank": per_rank,
                        "hops": hops,
                        "hop_priced_gb_per_s": 450.0 if hops else None})
@@ -258,14 +278,14 @@ def _worker(rank, world, port, args, refs):
         dist.destroy_process_group()
 
 
-def _reference(args, layers):
+def _reference(args, key):
     """The one-process form on one card (no process group): 4 stages over
     ``[card 0] * 4``, the pipeline phase's form."""
     import torch
 
     device = torch.device("cuda", 0) if args.device == "cuda" else (
         torch.device("cpu"))
-    losses, seconds, exe = _train(args, _config(args, layers), device,
+    losses, seconds, exe = _train(args, _config(args, *key), device,
                                   [device] * 4, num_stages=4)
     del exe
     if device.type == "cuda":
@@ -300,7 +320,7 @@ def main() -> int:
         print(cs.nvidia_smi(), flush=True)
         _build.build(cs.KERNELS)
         torch.backends.cuda.matmul.allow_tf32 = False
-    refs = {n: _reference(args, n) for n in {c[1] for c in _cases(args)}}
+    refs = {k: _reference(args, k) for k in {c[1] for c in _cases(args)}}
     mp.start_processes(_worker, args=(args.ranks, _free_port(), args, refs),
                        nprocs=args.ranks, start_method="spawn")
     return 0
