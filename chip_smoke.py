@@ -77,7 +77,7 @@ calls (``plan_training`` + ``plan.step``, ``plan.save``/``restore``,
    plain version at the pipeline's micro batch [6*25, 1024, 64];
 5e2. pipeline_dp: the same model, seed and batches as 2 stages x 2
    intra-stage data replicas over [cuda:0] * 4 (``plan_training(
-   num_stages=2, num_micro_batches=8, devices=[cuda:0] * 4)``) for 6
+   num_stages=2, num_micro_batches=8, devices=[cuda:0] * 4)``) for 3
    steps, then its captured program with ZeRO in a new
    ``PipelineExecutable`` for 3: losses within
    PIPELINE_LOSS_RTOL of the pipeline phase's (ZeRO: of the plain run's),
@@ -143,7 +143,18 @@ calls (``plan_training`` + ``plan.step``, ``plan.save``/``restore``,
    the TTFT histogram's count, no flash launch; its trace is written to
    ``chiprun_out/serving_trace.json``), then the ``ServingSupervisor``
    at 8 layers restarting once on an injected decode fault and delivering
-   every request exactly once with the uninterrupted run's tokens.
+   every request exactly once with the uninterrupted run's tokens;
+13. serve_fleet (after serve_rpc): fleet serving on card 0 (comment at
+   SHARD_*): GPT-2 1.5B in fp32 at full width, depth cut to SHARD_LAYERS,
+   loaded through ``load_fleet_servable`` over two servicers with a KV
+   budget that overflows one card, so it is split by the shard planner;
+   its greedy tokens equal ``sample()``'s bit for bit. Then
+   ``FleetRouter`` prefill and decode pools at full depth on the serving
+   schedule: fp32 tokens equal the serving phase's engine's, bf16 timed
+   (TTFT, handoff ms, pages moved, affinity hits, no page leaked). Last,
+   ``tools/torch_fidelity_report.py --trace`` on the merged trace the
+   fleet phase dumped of its unfaulted step: the fitted constants and the
+   step error before and after calibration.
 
 Then one ``{"kernels": [...]}`` line (a row for each kernel at each
 path's shape) and, last, the ``{"ok": true, ...}`` line. Every JSON line
@@ -1367,21 +1378,29 @@ def phase_pipeline(eager_losses, eager_micro: int):
     _profile_step("GPT-2 1.5B pipeline", lambda: plan.step(tokens), median)
     del plan, exe
     torch.cuda.empty_cache()
-    return launches, losses, prog
+    return launches, losses
 
 
-# fleet phase: the pipeline phase's program (GPT-2 1.5B, full width and
-# depth, its stage cut, M = 8) through the fleet pipeline: a
+# fleet phase: the pipeline phase's recipe (GPT-2 1.5B at full width,
+# batch 48 x 1024, 4 stages, M = 8) at FLEET_LAYERS deep, cut by
+# plan_pipeline and run through the fleet pipeline: a
 # DistributedPipelineSession over FLEET_WORKERS in-process workers that
 # all hold card 0 (stages s % 2: two a worker), activations worker to
-# worker as RPC raw-data pushes. FLEET_STEPS steps held to the pipeline
-# phase's losses (bit for bit is the aim; the check is its rtol); then a
-# save, one more step (the unfaulted loss), a restore, and the same step
-# again with a planted transient fault on worker 1 (FLEET_FAULT, armed
-# until the master's fence): recovered by _recover_step with no rollback,
-# its loss equal to the unfaulted step's. Budget: about 100 s.
-FLEET_WORKERS, FLEET_STEPS = 2, 3
+# worker as RPC raw-data pushes. FLEET_STEPS steps held to a one-process
+# PipelineExecutable of the same program over [cuda:0] * 4 (bit for bit
+# is the aim; the check is PIPELINE_LOSS_RTOL); then a save, one more
+# step (the unfaulted loss, traced: its merged trace is dumped to
+# FLEET_TRACE), a restore, and the same step again with a planted
+# transient fault on worker 1 (FLEET_FAULT, armed until the master's
+# fence): recovered by _recover_step with no rollback, its loss equal to
+# the unfaulted step's. Depth cut from 48 to 12 layers: at 48 the
+# phase took 99-193 s (shipping the four stage programs alone 28.5-105.6
+# s between two runs of one tree), and the whole script came within 24 s
+# of its 1200 s limit. Budget: about 60 s.
+FLEET_WORKERS, FLEET_STEPS, FLEET_LAYERS = 2, 3, 12
 FLEET_FAULT = "server_fault:p=1,verb=ExecuteStepSlice,ti=1"
+# The unfaulted step's merged trace (the serve_fleet phase reads it).
+FLEET_TRACE = os.path.join("chiprun_out", "fleet_trace.json")
 FLEET_VERBS = ("TransferModuleAndDefCtx", "DispatchPlan", "ExecuteStepSlice",
                "TransferHostRawData", "TransferToServerHost", "AbortStep",
                "DoRemoteSave", "DoRemoteRestore")
@@ -1421,25 +1440,43 @@ def _arm_until_fence(servicer, spec) -> None:
     servicer.AbortStep = fenced
 
 
-def phase_fleet(prog, pipe_losses):
+def phase_fleet():
     """GPT-2 1.5B through ``DistributedPipelineSession`` over in-process
     workers on card 0 (module comment at FLEET_*). Returns the kernels'
     launches over the FLEET_STEPS steps."""
     import torch
 
+    from tepdist_tpu_torch import telemetry
+    from tepdist_tpu_torch.core.tree import tree_map
     from tepdist_tpu_torch.models import gpt2
     from tepdist_tpu_torch.ops import flash_attention as fa
     from tepdist_tpu_torch.optim import adamw_bf16
+    from tepdist_tpu_torch.parallel.pipeline import plan_pipeline
     from tepdist_tpu_torch.rpc.inproc import (close_inproc_cluster,
                                               make_inproc_cluster)
     from tepdist_tpu_torch.runtime import faults
     from tepdist_tpu_torch.runtime.distributed_executor import (
         DistributedPipelineSession)
+    from tepdist_tpu_torch.runtime.executor import PipelineExecutable
     from tepdist_tpu_torch.telemetry import metrics
 
     torch.cuda.empty_cache()
-    cfg = _config(48)
-    L, M = cfg.n_layer, prog.num_micro_batches
+    cfg = _config(FLEET_LAYERS)
+    L, M = cfg.n_layer, PIPE_MICRO
+    params = gpt2.init_params(cfg, seed=0, device="cuda")
+    tokens = gpt2.fake_batch(cfg, PLAN_BATCH, SEQ, seed=0, device="cuda")
+    t0 = time.perf_counter()
+    prog = plan_pipeline(lambda p, t: gpt2.loss_fn(p, t, cfg), PIPE_STAGES,
+                         M, params, tokens)
+    plan_s = time.perf_counter() - t0
+    # The reference: the same program in one process, on copies (on one
+    # device the executable updates the leaves it is given in place).
+    exe = PipelineExecutable(prog, devices=[torch.device("cuda", 0)]
+                             * PIPE_STAGES, optimizer=adamw_bf16(1e-4))
+    exe.load_variables(tree_map(lambda t: t.clone(), params))
+    ref = [exe.step(tokens) for _ in range(FLEET_STEPS + 1)]
+    del exe
+    torch.cuda.empty_cache()
     # The raw-data push (the reference fleet's hop); tickets would make
     # each hop a device copy between the in-process workers.
     knob = os.environ.get("TEPDIST_DEVICE_TRANSFER")
@@ -1452,8 +1489,6 @@ def phase_fleet(prog, pipe_losses):
     handler_ms = {}
     for sv in servicers:
         _time_verbs(sv, FLEET_VERBS, handler_ms)
-    params = gpt2.init_params(cfg, seed=0, device="cuda")
-    tokens = gpt2.fake_batch(cfg, PLAN_BATCH, SEQ, seed=0, device="cuda")
     want = {"flash_fwd": 2 * L * M, "flash_dq": L * M, "flash_dkv": L * M}
     metrics().reset()
     sess = None
@@ -1484,9 +1519,16 @@ def phase_fleet(prog, pipe_losses):
         t1 = time.perf_counter()
         sess.save()
         save_s = time.perf_counter() - t1
+        # The unfaulted step runs traced: its merged trace (every
+        # worker's spans, the simulator's predicted timeline in the
+        # metadata) is the serve_fleet phase's fidelity input.
+        tracer = telemetry.configure(enabled=True, capacity=1 << 18)
+        tracer.clear()
         t1 = time.perf_counter()
         clean = sess.step(tokens)
         clean_s = time.perf_counter() - t1
+        trace_path = sess.dump_trace(path=FLEET_TRACE, clear=True)
+        telemetry.configure(enabled=False)
         t1 = time.perf_counter()
         sess.restore(FLEET_STEPS)
         restore_s = time.perf_counter() - t1
@@ -1513,7 +1555,6 @@ def phase_fleet(prog, pipe_losses):
     def delta(k):
         return after.get(k, 0) - before.get(k, 0)
 
-    ref = list(pipe_losses[:FLEET_STEPS + 1])
     got = losses + [faulted]
     rel = [abs(a - b) / abs(b) for a, b in zip(got, ref)]
     steady = seconds[1:]
@@ -1524,12 +1565,15 @@ def phase_fleet(prog, pipe_losses):
           "devices": "every worker on cuda:0 (inproc: addresses)",
           "stage_worker": sess.stage_worker if sess else None,
           "transport": "RPC raw-data push (TEPDIST_DEVICE_TRANSFER=0)",
+          "plan_pipeline_seconds": plan_s,
           "ship_seconds": ship_s, "setup_seconds": setup_s,
-          "losses": losses, "pipeline_losses": ref,
-          "bit_for_bit_with_pipeline": losses == ref[:FLEET_STEPS],
+          "losses": losses,
+          "reference": "PipelineExecutable of the same program over "
+                       "[cuda:0] * 4",
+          "reference_losses": ref,
+          "bit_for_bit_with_reference": losses == ref[:FLEET_STEPS],
           "loss_rel_diff": rel, "loss_rtol": PIPELINE_LOSS_RTOL,
           "step_seconds": seconds,
-          "pipeline_phase_step_seconds_note": "see the pipeline line",
           "tokens_per_s": PLAN_BATCH * SEQ * len(steady) / sum(steady),
           "max_memory_allocated_bytes": peak,
           "launches_per_step": per_step, "expected_per_step": want,
@@ -1538,7 +1582,8 @@ def phase_fleet(prog, pipe_losses):
                             for ti, (b, s_) in pushes.items()},
           "handler_ms_by_verb": step_handler,
           "save_seconds": save_s, "restore_seconds": restore_s,
-          "unfaulted_step": {"loss": clean, "seconds": clean_s},
+          "unfaulted_step": {"loss": clean, "seconds": clean_s,
+                             "traced": True, "trace": trace_path},
           "faulted_step": {"fault": FLEET_FAULT, "loss": faulted,
                            "seconds": faulted_s,
                            "faults_injected":
@@ -1552,7 +1597,7 @@ def phase_fleet(prog, pipe_losses):
         raise SystemExit(f"chip_smoke: fleet non-finite loss {got}")
     if max(rel) > PIPELINE_LOSS_RTOL:
         raise SystemExit(f"chip_smoke: fleet losses {got} differ from the "
-                         f"pipeline phase's {ref}")
+                         f"one-process executable's {ref}")
     if faulted != clean:
         raise SystemExit(f"chip_smoke: the faulted step's loss {faulted} "
                          f"differs from the unfaulted step's {clean}")
@@ -1570,9 +1615,11 @@ def phase_fleet(prog, pipe_losses):
 # Pipeline stages over several devices (ROADMAP item 13b), one card in the
 # one-process form: the pipeline phase's model, seed and batches as 2
 # stages x 2 intra-stage data replicas over [cuda:0] * 4, M = 8 (3 rows a
-# replica a micro batch), plain for STEPS steps, then the same program
-# with ZeRO for PIPE_DP_ZERO_STEPS (held to the plain run's first ones).
-PIPE_DP_STAGES, PIPE_DP_REPLICAS, PIPE_DP_ZERO_STEPS = 2, 2, 3
+# replica a micro batch), plain for PIPE_DP_STEPS steps (cut from 6 to 3
+# for the script's time limit), then the same program with ZeRO for
+# PIPE_DP_ZERO_STEPS (held to the plain run's first ones).
+PIPE_DP_STAGES, PIPE_DP_REPLICAS = 2, 2
+PIPE_DP_STEPS, PIPE_DP_ZERO_STEPS = 3, 3
 
 
 def phase_pipeline_dp(pipe_losses):
@@ -1582,7 +1629,7 @@ def phase_pipeline_dp(pipe_losses):
     replica's 3 rows, the partial gradients summed once at APPLY), then
     the same captured program with ZeRO (each replica updates half of
     every padded flat optimizer leaf: reduce-scatter, update, all-gather)
-    in a new ``PipelineExecutable``. 6 steps plain, 3 with ZeRO: losses
+    in a new ``PipelineExecutable``. 3 steps plain, 3 with ZeRO: losses
     within PIPELINE_LOSS_RTOL of the pipeline phase's, ZeRO's of the plain
     run's, launches 2LMR / LMR / LMR a step; the predicted makespan and
     bubble (4 devices, ``h100`` entry), step seconds, peak memory, and a
@@ -1629,7 +1676,7 @@ def phase_pipeline_dp(pipe_losses):
         torch.cuda.reset_peak_memory_stats()
         losses, seconds, per_step = [], [], []
         fa.reset_launch_counts()
-        for _ in range(PIPE_DP_ZERO_STEPS if zero else STEPS):
+        for _ in range(PIPE_DP_ZERO_STEPS if zero else PIPE_DP_STEPS):
             before = dict(fa.launch_counts)
             t0 = time.perf_counter()
             losses.append(step(tokens))     # returns after a device sync
@@ -3238,6 +3285,337 @@ def phase_serve_rpc(fp32_results) -> None:
                              f"kernels {v['flash']} ({k})")
 
 
+# serve_fleet phase (ROADMAP item 17), every servicer on card 0 behind an
+# inproc: address. Budget: about 150 s.
+# - sharded: GPT-2 1.5B in fp32 (TF32 off, full width, SHARD_LAYERS
+#   deep) through load_fleet_servable over SHARD_WORKERS servicers, with
+#   hbm_budget_bytes the card's HBM (the h100 entry's 80 GB): a paged pool
+#   that large beside the weights overflows verify_servable, so the load
+#   goes through plan_sharded_servable's split (the whole explore). The
+#   greedy tokens of SHARD_PROMPTS prompts (the serving schedule's first
+#   ones) x SHARD_NEW must equal sample()'s bit for bit.
+# - disagg: FleetRouter(prefill=1, decode=1) at full width and depth on
+#   the serving phase's 16 requests (no waves, no cancel), the serving
+#   phase's engine settings with 16 slots: in fp32 every request's tokens
+#   equal the serving phase's engine's (the cancelled one over its
+#   tokens); in bf16 timed: TTFT, the disagg_ttft_ms and kv_handoff_ms
+#   histograms, pages moved against the live pages. Both: the affinity
+#   hits, and no page left after drain_all.
+# - trace: tools/torch_fidelity_report.py --trace on the fleet phase's
+#   merged trace of one fleet step: the fitted constants and the step
+#   error before and after calibration. The profile is written to
+#   SHARD_PROFILE and installed nowhere (the h100 entry keeps its
+#   constants).
+SHARD_WORKERS, SHARD_PROMPTS, SHARD_NEW = 2, 4, 32
+# Depth cut from 48 to 8 layers: the shard planner (the whole explore at
+# n_devices=2, its candidate space uncut) takes 117.7 s at 48 layers and
+# 20.5 s at 8 on the card's host (tools/torch_serve_shard_plan.py).
+SHARD_LAYERS = 8
+SHARD_HBM_BUDGET = 80e9
+SHARD_PROFILE = os.path.join("chiprun_out", "fleet_calibration.json")
+DISAGG_SERVERS = 2
+
+
+def _fleet_servicers(n: int, port0: int):
+    """``n`` servicers on card 0 behind inproc: addresses, and a client
+    each."""
+    import torch
+
+    from tepdist_tpu_torch.rpc import inproc
+    from tepdist_tpu_torch.rpc.client import TepdistClient
+    from tepdist_tpu_torch.rpc.server import TepdistServicer
+
+    addrs = [f"inproc:{port0 + i}" for i in range(n)]
+    servicers = [TepdistServicer([torch.device("cuda", 0)], task_index=i)
+                 for i in range(n)]
+    for a, sv in zip(addrs, servicers):
+        inproc.register_servicer(a, sv)
+    return addrs, servicers, [TepdistClient(a) for a in addrs]
+
+
+def _close_fleet(addrs, servicers, clients) -> None:
+    import torch
+
+    from tepdist_tpu_torch.rpc import inproc
+
+    for c in clients:
+        c.close()
+    for a, sv in zip(addrs, servicers):
+        sv.close_servables()
+        inproc.unregister_servicer(a)
+    torch.cuda.empty_cache()
+
+
+def _serve_sharded(schedule) -> dict:
+    """The sharded arm (module comment at SHARD_*)."""
+    import numpy as np
+    import torch
+
+    from tepdist_tpu_torch.models import gpt2, sampling
+    from tepdist_tpu_torch.serving import ShardedServable, fleet
+
+    cfg = dataclasses.replace(gpt2.CONFIGS["1.5B"], n_layer=SHARD_LAYERS,
+                              dtype=torch.float32)
+    params = gpt2.init_params(cfg, seed=21, device="cuda")
+    planned = {}
+    plan_fn = fleet.plan_sharded_servable
+
+    def timed_plan(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = plan_fn(*args, **kwargs)
+        planned["seconds"] = time.perf_counter() - t0
+        return out
+
+    fleet.plan_sharded_servable = timed_plan
+    hops = []
+    fleet_ = _fleet_servicers(SHARD_WORKERS, 9400)
+    try:
+        t0 = time.perf_counter()
+        sv = fleet.load_fleet_servable(
+            fleet_[2], params, cfg, name="gpt2-sharded",
+            max_len=SERVE_ENGINE["max_len"],
+            page_size=SERVE_ENGINE["page_size"],
+            hbm_budget_bytes=SHARD_HBM_BUDGET)
+        load_s = time.perf_counter() - t0
+        if not isinstance(sv, ShardedServable):
+            raise SystemExit(f"chip_smoke: the {SHARD_HBM_BUDGET:.0f} B "
+                             f"budget loaded {type(sv).__name__}, not a "
+                             "sharded servable")
+        for s_, (c, _) in enumerate(sv.placements):
+            def hop(sid, op, array, pos=0, fn=c.execute_servable_slice,
+                    s_=s_):
+                out = fn(sid, op, array, pos=pos)
+                hops.append((s_, op, int(out.nbytes)))
+                return out
+            c.execute_servable_slice = hop
+        prompts = [r["prompt"] for r in schedule[:SHARD_PROMPTS]]
+        got, ms_per_token = [], []
+        for p in prompts:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got.append(sv.generate_one(p, max_new_tokens=SHARD_NEW))
+            ms_per_token.append((time.perf_counter() - t1) * 1e3
+                                / SHARD_NEW)
+        want, sample_ms = [], []
+        for p in prompts:
+            prompt = torch.as_tensor(p, device="cuda").long()[None]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            want.append(sampling.sample(
+                params, prompt, cfg, max_new_tokens=SHARD_NEW,
+                greedy=True)[0].cpu().numpy())
+            torch.cuda.synchronize()
+            sample_ms.append((time.perf_counter() - t1) * 1e3 / SHARD_NEW)
+        plan = sv.plan
+        stages = [s.servables[sid].stats()["stage"]
+                  for s, (_, sid) in zip(fleet_[1], sv.placements)]
+    finally:
+        fleet.plan_sharded_servable = plan_fn
+        _close_fleet(*fleet_)
+        del params
+    differ = [i for i, (g, w) in enumerate(zip(got, want))
+              if not np.array_equal(g, w)]
+    by_hop = {}
+    for s_, op, nbytes in hops:
+        by_hop.setdefault(f"stage{s_}:{op}", []).append(nbytes)
+    best = plan["candidates"][0]
+    return {"n_layer": SHARD_LAYERS, "dtype": "float32, TF32 off",
+            "workers": SHARD_WORKERS,
+            "hbm_budget_bytes": SHARD_HBM_BUDGET,
+            "stages": stages, "num_stages": plan["num_stages"],
+            "fallback": plan["fallback"],
+            "global_best": {k: best.get(k) for k in (
+                "kind", "num_stages", "intra_tp", "placement")}
+            | ({"topology": str(best["topology"])}
+               if "topology" in best else {}),
+            "candidates": plan["n_candidates"],
+            "planner_seconds": planned.get("seconds"),
+            "explore_phases": plan["explore_phases"],
+            "load_seconds": load_s,
+            "prompts": [len(p) for p in prompts],
+            "new_tokens": SHARD_NEW,
+            "ms_per_token": _quantiles(ms_per_token),
+            "sample_ms_per_token": _quantiles(sample_ms),
+            "bytes_per_hop": {k: {"first": v[0], "last": v[-1],
+                                  "n": len(v)}
+                              for k, v in sorted(by_hop.items())},
+            "prompts_differing_from_sample": differ}
+
+
+def _serve_disagg(schedule, fp32_results) -> dict:
+    """The disagg arm (module comment at SHARD_*): fp32 held to the
+    serving phase's engine, then bf16 timed."""
+    import torch
+
+    from tepdist_tpu_torch import telemetry
+    from tepdist_tpu_torch.models import gpt2
+    from tepdist_tpu_torch.serving import FleetRouter, pages_for
+
+    base = gpt2.CONFIGS["1.5B"]
+    engine = dict(SERVE_ENGINE, slots=SERVE_REQUESTS)
+    live = sum(pages_for(len(r["prompt"]), engine["page_size"])
+               for r in schedule)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        fleet_ = _fleet_servicers(DISAGG_SERVERS, 9500)
+        try:
+            router = FleetRouter(fleet_[2], prefill=1, decode=1)
+            params = gpt2.init_params(cfg, seed=21, device="cuda")
+            t0 = time.perf_counter()
+            router.load(params, cfg, name=f"gpt2-disagg-{cfg.dtype}",
+                        **engine)
+            load_s = time.perf_counter() - t0
+            del params
+            torch.cuda.empty_cache()
+            telemetry.metrics().reset()
+            t0 = time.perf_counter()
+            for r in schedule:
+                router.submit(r["prompt"], request_id=r["rid"], **r["kw"])
+            handed = [router.handoff(r["rid"], timeout_s=600)
+                      for r in schedule]
+            results = router.wait([r["rid"] for r in schedule],
+                                  timeout_s=600)
+            wall = time.perf_counter() - t0
+            snap = telemetry.metrics().snapshot()
+            router.drain_all(wait_ms=5000.0)
+            leaked = sum(int(e.stats().get("pages_used", 0))
+                         for sv in fleet_[1] for e in sv.servables.values())
+            out[str(dtype)] = dict(
+                results=results, wall_s=wall, load_s=load_s, snap=snap,
+                leaked=leaked, ttft=list(router.ttft_ms),
+                handoff=list(router.handoff_ms),
+                adopted=[h.get("status") for h in handed])
+        finally:
+            _close_fleet(*fleet_)
+    r32, b = out[str(torch.float32)], out[str(torch.bfloat16)]
+    differ = _tokens_differ(r32["results"], fp32_results)
+    hist = b["snap"]["histograms"]
+    tokens = sum(r["n_tokens"] for r in b["results"].values())
+
+    def pages(run):
+        c = run["snap"]["counters"]
+        return {k: c.get(k, 0) for k in (
+            "kv_pages_exported", "kv_pages_adopted", "kv_pages_reused",
+            "pool_handoffs", "prefix_affinity_hits", "prefix_hits")}
+
+    return {"requests": SERVE_REQUESTS, "new_tokens": SERVE_NEW,
+            "engine": engine, "live_pages": live,
+            "fp32_requests_differing_from_serving_phase": differ,
+            "statuses": {k: sorted({r["status"]
+                                    for r in v["results"].values()})
+                         for k, v in out.items()},
+            "adopt_answers": {k: sorted(set(v["adopted"]))
+                              for k, v in out.items()},
+            "pages": {k: pages(v) for k, v in out.items()},
+            "pages_after_drain_all": {k: v["leaked"]
+                                      for k, v in out.items()},
+            "load_seconds": {k: v["load_s"] for k, v in out.items()},
+            "timed_dtype": "bfloat16", "wall_seconds": b["wall_s"],
+            "tokens": tokens, "tokens_per_s": tokens / b["wall_s"],
+            "ttft_ms_host": _quantiles(b["ttft"]),
+            "disagg_ttft_ms": {k: hist.get("disagg_ttft_ms", {}).get(k)
+                               for k in ("p50", "p99", "count")},
+            "kv_handoff_ms": {k: hist.get("kv_handoff_ms", {}).get(k)
+                              for k in ("p50", "p99", "count")},
+            "kv_handoff_ms_host": _quantiles(b["handoff"])}
+
+
+def _fleet_fidelity(trace_path) -> dict:
+    """tools/torch_fidelity_report.py --trace on the fleet phase's trace
+    (its own process, as a user runs it)."""
+    proc = subprocess.run(
+        [sys.executable, os.path.join("tools", "torch_fidelity_report.py"),
+         "--trace", trace_path, "--json", "--save-profile", SHARD_PROFILE],
+        capture_output=True, text=True, timeout=300)
+    if proc.returncode:
+        raise SystemExit(f"chip_smoke: torch_fidelity_report.py exited "
+                         f"{proc.returncode}: {proc.stderr[-2000:]}")
+    rep = json.loads(proc.stdout[proc.stdout.index("{"):
+                                 proc.stdout.rindex("}") + 1])
+    cal = rep["calibration"]
+    return {"trace": trace_path, "step": rep["step"],
+            "join": {k: rep["join"][k] for k in (
+                "matched", "fraction", "skipped_bookkeeping")}
+            | {"orphan_predicted": len(rep["join"]["orphan_predicted"]),
+               "orphan_measured": len(rep["join"]["orphan_measured"])},
+            "predicted_step_ms": rep.get("predicted_step_ms"),
+            "measured_step_ms": rep.get("measured_step_ms"),
+            "per_kind": rep["per_kind"],
+            "profile": cal["profile"], "profile_path": SHARD_PROFILE,
+            "uncalibrated_makespan_ms": rep.get("uncalibrated_makespan_ms"),
+            "calibrated_makespan_ms": cal.get("calibrated_makespan_ms"),
+            "uncalibrated_error_ms": cal.get("uncalibrated_error_ms"),
+            "calibrated_error_ms": cal.get("calibrated_error_ms"),
+            "resimulation": ("the trace's predicted timeline replayed in "
+                             "its own order" if cal.get("replayed")
+                             else "the task graph")}
+
+
+def phase_serve_fleet(fp32_results, trace_path) -> None:
+    """Fleet serving on card 0 (module comment at SHARD_*): the sharded
+    servable, the prefill/decode pools and the fleet trace's fidelity
+    report. Fails on any token mismatch, a leaked page, a flash launch or
+    a partial join."""
+    import torch
+
+    from tepdist_tpu_torch.models import gpt2
+    from tepdist_tpu_torch.ops import flash_attention as fa
+
+    smi = nvidia_smi()
+    schedule = _serve_schedule(gpt2.CONFIGS["1.5B"].vocab_size)
+    seconds = {}
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    sharded = _serve_sharded(schedule)
+    seconds["sharded"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    disagg = _serve_disagg(schedule, fp32_results)
+    seconds["disagg"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fidelity = _fleet_fidelity(trace_path)
+    seconds["trace"] = time.perf_counter() - t0
+    flash = dict(fa.launch_counts)
+    emit({"phase": "serve_fleet", "model": "GPT-2 1.5B", "nvidia_smi": smi,
+          "devices": "every servicer on cuda:0 (inproc: addresses)",
+          "sharded": sharded, "disagg": disagg, "fidelity": fidelity,
+          "flash_launches": flash, "arm_seconds": seconds})
+    if sharded["prompts_differing_from_sample"]:
+        raise SystemExit(f"chip_smoke: sharded tokens differ from "
+                         f"sample() for prompts "
+                         f"{sharded['prompts_differing_from_sample']}")
+    if disagg["fp32_requests_differing_from_serving_phase"]:
+        raise SystemExit(
+            f"chip_smoke: disagg fp32 tokens differ from the serving "
+            f"phase's in "
+            f"{disagg['fp32_requests_differing_from_serving_phase']}")
+    for k, st in disagg["statuses"].items():
+        if st != ["done"] or disagg["adopt_answers"][k] != ["adopted"]:
+            raise SystemExit(f"chip_smoke: disagg {k}: statuses {st}, "
+                             f"adopts {disagg['adopt_answers'][k]}")
+    for k, pg in disagg["pages"].items():
+        if (pg["kv_pages_adopted"] + pg["kv_pages_reused"]
+                != disagg["live_pages"]
+                or pg["kv_pages_exported"] != pg["kv_pages_adopted"]
+                or pg["pool_handoffs"] != SERVE_REQUESTS):
+            raise SystemExit(f"chip_smoke: disagg {k} moved {pg}, "
+                             f"live pages {disagg['live_pages']}")
+        if pg["prefix_affinity_hits"] < len(SERVE_PREFIXED) - 1:
+            raise SystemExit(f"chip_smoke: disagg {k}: "
+                             f"{pg['prefix_affinity_hits']} affinity hits")
+    if any(disagg["pages_after_drain_all"].values()):
+        raise SystemExit(f"chip_smoke: pages left after drain_all: "
+                         f"{disagg['pages_after_drain_all']}")
+    if any(flash.values()):
+        raise SystemExit(f"chip_smoke: serve_fleet launched flash kernels "
+                         f"{flash}")
+    if (fidelity["join"]["fraction"] != 1.0
+            or fidelity["join"]["orphan_measured"]):
+        raise SystemExit(f"chip_smoke: the fleet trace's join is partial: "
+                         f"{fidelity['join']}")
+    torch.cuda.empty_cache()
+
+
 def _time_chunk(eng) -> dict:
     """Device ms of one 256-token prefill chunk of the bf16 engine (chunk
     executable plus page insert), with no history and with 256 tokens of
@@ -3308,7 +3686,7 @@ def main() -> int:
     rpc_launches = phase_rpc(PLAN_BATCH // plan_mb, plan_losses,
                              spmd_seconds)
     mark("rpc")
-    pipe_launches, pipe_losses, pipe_prog = phase_pipeline(
+    pipe_launches, pipe_losses = phase_pipeline(
         plan_losses, PLAN_BATCH // plan_mb)
     # The pipeline path's kernels at its micro batch.
     pipe_mb = PLAN_BATCH // PIPE_MICRO
@@ -3317,8 +3695,7 @@ def main() -> int:
         seed=300, time_it=True)
     mark("pipeline")
     # The fleet pipeline: the same program over in-process workers.
-    fleet_launches = phase_fleet(pipe_prog, pipe_losses)
-    del pipe_prog
+    fleet_launches = phase_fleet()
     mark("fleet")
     # Stages over several devices (one card): intra-stage replicas, ZeRO,
     # the collective pipeline; the kernels at a replica's micro batch.
@@ -3367,6 +3744,8 @@ def main() -> int:
     mark("serving")
     phase_serve_rpc(fp32_serving)
     mark("serve_rpc")
+    phase_serve_fleet(fp32_serving, FLEET_TRACE)
+    mark("serve_fleet")
     emit({"phase": "timing", "phase_seconds": seconds,
           "total_seconds": sum(seconds.values())})
     rows = []
@@ -3389,8 +3768,9 @@ def main() -> int:
              f"phase: 4 stages, M = {PIPE_MICRO})", pipe_case,
              pipe_launches),
             (f"[{pipe_mb}*25, 1024, 64] bf16 causal (GPT-2 1.5B fleet "
-             f"phase: 4 stages on {FLEET_WORKERS} in-process workers, "
-             f"M = {PIPE_MICRO})", pipe_case, fleet_launches),
+             f"phase, {FLEET_LAYERS} layers: 4 stages on {FLEET_WORKERS} "
+             f"in-process workers, M = {PIPE_MICRO})", pipe_case,
+             fleet_launches),
             (f"[{dp_mb}*25, 1024, 64] bf16 causal (GPT-2 1.5B pipeline_dp "
              f"phase: 2 stages x 2 replicas, M = {PIPE_MICRO})",
              pipe_dp_case, pipe_dp_launches),

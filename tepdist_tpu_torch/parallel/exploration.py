@@ -241,14 +241,18 @@ def seq_candidates(graph, n_devices: int,
 
 def pipeline_candidates(loss_fn: Callable, params, example_batch,
                         n_devices: int, batch_rows: int,
-                        num_micro_batches: int = 4) -> List[Dict[str, Any]]:
+                        num_micro_batches: int = 4,
+                        micro_options=None) -> List[Dict[str, Any]]:
     """Pipeline stage-cut proposals S x M x intra-stage-TP (reference: up
     to 3 split ordinals incl. the stage level, auto_parallel.cc:132-181):
     each tp variant re-prices the SAME stage cut with per-stage compute
     divided over the model axis plus the stage planner's TP comm, folded
     into the task-time model as equivalent flops. Each blocked cut also
     comes with its ``@zero`` (dp > 1) and comm-dtype variants, and each
-    even S with an interleaved variant over S/2 groups."""
+    even S with an interleaved variant over S/2 groups.
+
+    ``micro_options``: explicit M proposals (the serving planner prices
+    M = 1 only: a request is one sequence)."""
     from tepdist_tpu_torch.core.mesh import MeshTopology
     from tepdist_tpu_torch.core.tree import tree_leaves
     from tepdist_tpu_torch.parallel.evaluator import Evaluator
@@ -279,7 +283,8 @@ def pipeline_candidates(loss_fn: Callable, params, example_batch,
                         "(blocked or interleaved)")
             continue
         per = n_devices // S if blocked_ok else 0
-        for M in sorted({num_micro_batches, 2 * num_micro_batches}):
+        for M in (sorted(micro_options) if micro_options is not None
+                  else sorted({num_micro_batches, 2 * num_micro_batches})):
             if batch_rows % M:
                 observatory.record_prune(
                     "pipeline", f"S={S} M={M}", "enumeration_skip",
@@ -462,6 +467,7 @@ def explore(
     num_micro_batches: int = 4,
     include_pipeline: bool = True,
     include_seq: bool = True,
+    pipeline_micro_options=None,
     entry_point: str = "explore",
 ) -> Dict[str, Any]:
     """Exploration over the unified candidate space (reference:
@@ -514,7 +520,7 @@ def explore(
             with span("explore:pipeline", cat="planner"):
                 candidates += pipeline_candidates(
                     loss_fn, params, example_batch, n_devices, batch_rows,
-                    num_micro_batches)
+                    num_micro_batches, micro_options=pipeline_micro_options)
             if col is not None:
                 col.phase("pipeline", time.perf_counter() - t0)
         else:

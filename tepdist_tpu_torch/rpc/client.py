@@ -374,8 +374,10 @@ class TepdistClient:
                       stage: Optional[Dict[str, Any]] = None) -> str:
         """Ship a model (JSON-able GPT2Config dict + flat param leaves in
         tree order) and start its supervised serving engine. Returns the
-        servable id the other serve verbs take. ``stage`` (a pipeline
-        stage servable) is fleet serving's (ROADMAP item 17)."""
+        servable id the other serve verbs take. ``stage`` loads a
+        pipeline-STAGE servable instead of a whole-model engine: a dict
+        ``{"lo", "hi", "first", "last", "names"}`` naming the layer range
+        and the dotted param leaves being shipped (``serving/fleet.py``)."""
         metas, blobs = [], []
         for leaf in param_leaves:
             meta, blob = protocol.encode_literal(leaf)
@@ -534,6 +536,20 @@ class TepdistClient:
             "wire_dtype": wire_dtype}, [blob])
         header, _ = protocol.unpack(resp)
         return header
+
+    def execute_servable_slice(self, servable_id: str, op: str,
+                               array, pos: int = 0):
+        """Run one ``op`` ("prefill" | "decode") of a pipeline-STAGE
+        servable: int tokens [1, S] into the first stage, hidden
+        activations [1, S, d] into later ones. Returns a host tensor;
+        exact activation bytes cross on the Frames path (bf16 as its
+        uint16 bits)."""
+        meta, blob = protocol.encode_literal(array)
+        resp = self.call("ExecuteServableSlice", {
+            "servable_id": servable_id, "op": str(op),
+            "array": meta, "pos": int(pos)}, [blob])
+        header, blobs = protocol.unpack(resp)
+        return protocol.decode_literal(header["out"], blobs[0])
 
     def close(self) -> None:
         self.stub.close()

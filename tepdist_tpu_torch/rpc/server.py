@@ -57,10 +57,17 @@ from tepdist_tpu_torch.telemetry import watchtower
 
 log = logging.getLogger("tepdist.server")
 
-# The verbs of later items: each raises NotImplementedError naming its
-# item (ROADMAP.md, slice 5): a pipeline-stage servable's slice is fleet
-# serving's.
-LATER_VERBS = {"ExecuteServableSlice": "17"}
+# Verbs whose handlers can run for seconds to minutes (execute, compile,
+# model load). A gRPC server's bounded gate admits only so many of THESE
+# at once, so the short control verbs (heartbeat Pings, AbortStep fences,
+# telemetry pulls, serving polls) always find a free pool thread.
+HEAVY_VERBS = frozenset({
+    "ExecuteStepSlice", "ExecuteRemotePlan", "ExecutePlan",
+    "BuildExecutionPlan", "LoadServable",
+    # A stage's forward runs the model's layers: gate it with the other
+    # compute verbs so control RPCs never queue behind it.
+    "ExecuteServableSlice",
+})
 
 
 def _free_port() -> int:
@@ -1374,10 +1381,6 @@ class TepdistServicer:
         if cached is not None:
             return cached
         self._inject_server_fault("LoadServable")
-        if header.get("stage") is not None:
-            raise NotImplementedError(
-                "a pipeline-stage servable comes with ROADMAP item 17 "
-                "(fleet serving)")
         from tepdist_tpu_torch.models import gpt2
         from tepdist_tpu_torch.serving.kv_cache import config_from_spec
         from tepdist_tpu_torch.serving.supervisor import ServingSupervisor
@@ -1385,6 +1388,9 @@ class TepdistServicer:
         cfg = config_from_spec(header["config"])
         leaves = [self._to_device(protocol.decode_literal(m, blobs[i]))
                   for i, m in enumerate(header["params_meta"])]
+        if header.get("stage") is not None:
+            return self._load_stage_servable(header, cfg, leaves,
+                                             header["stage"])
         # The param tree's structure depends on the depth alone: a
         # one-wide model of the same depth gives it.
         import dataclasses
@@ -1441,6 +1447,38 @@ class TepdistServicer:
         log.info("LoadServable %s: %s", sid, eng.stats())
         return self._idem_put(header, protocol.pack(
             {"ok": True, "servable_id": sid, **eng.stats()}))
+
+    def _load_stage_servable(self, header, cfg, leaves, stage) -> bytes:
+        """Sharded arm of LoadServable: install ONE pipeline stage (a
+        layer range plus the embedding/logit tables it owns) as a
+        StageServable driven over ExecuteServableSlice, instead of a
+        whole-model engine. The planner-priced split was verified
+        fleet-wide client-side; each worker re-verifies just ITS stage
+        against the local HBM budget."""
+        from tepdist_tpu_torch.analysis.plan_verify import (
+            verify_enabled, verify_sharded_servable)
+        from tepdist_tpu_torch.serving.fleet import (StageServable,
+                                                     build_stage_params)
+        lo, hi = int(stage["lo"]), int(stage["hi"])
+        first, last = bool(stage["first"]), bool(stage["last"])
+        max_len = int(header.get("max_len") or cfg.n_ctx)
+        if verify_enabled():
+            verify_sharded_servable(
+                cfg, stages=[(lo, hi, first, last)], max_len=max_len,
+                where=f"LoadServable@{self.task_index}")
+        params = build_stage_params(stage["names"], leaves)
+        with self._lock:
+            sid = f"sv{self._servable_next}"
+            self._servable_next += 1
+        name = header.get("name") or sid
+        sv = StageServable(params, cfg, lo=lo, hi=hi, first=first,
+                           last=last, max_len=max_len,
+                           name=f"{name}@{self.task_index}",
+                           device=self.device)
+        self.servables[sid] = sv
+        log.info("LoadServable %s (stage): %s", sid, sv.stats())
+        return self._idem_put(header, protocol.pack(
+            {"ok": True, "servable_id": sid, **sv.stats()}))
 
     def SubmitRequest(self, request: bytes, context=None) -> bytes:
         """Enqueue one generation request. Two dedup layers: the idem
@@ -1561,25 +1599,28 @@ class TepdistServicer:
         return self._idem_put(header,
                               protocol.pack({"ok": True, **out}))
 
+    def ExecuteServableSlice(self, request: bytes, context=None
+                             ) -> bytes:
+        """Run one op of a pipeline-STAGE servable (``serving/fleet.py``
+        StageServable): tokens into the first stage, hidden activations
+        into later ones. Exact ``cfg.dtype`` activation bytes ride back
+        on the Frames path (bf16 as its uint16 bits)."""
+        header, blobs = protocol.unpack(request)
+        self._check_epoch(header)
+        self._inject_server_fault("ExecuteServableSlice")
+        sv = self._servable(header["servable_id"])
+        arr = protocol.decode_literal(header["array"], blobs[0])
+        out = sv.execute(str(header["op"]), arr,
+                         pos=int(header.get("pos", 0)))
+        meta, blob = protocol.encode_literal(out)
+        return protocol.pack_frames({"ok": True, "out": meta}, [blob])
+
     def close_servables(self) -> None:
         """Stop every serving engine (drain by default: admission stops
         and resident slots finish within the stop timeout)."""
         for eng in list(self.servables.values()):
             eng.stop(drain=True)
         self.servables.clear()
-
-
-def _later_verb(name: str, item: str):
-    def verb(self, request: bytes, context=None) -> bytes:
-        raise NotImplementedError(
-            f"{name} comes with ROADMAP item {item}; this server runs the "
-            "single-server verbs")
-    verb.__name__ = name
-    return verb
-
-
-for _name, _item in LATER_VERBS.items():
-    setattr(TepdistServicer, _name, _later_verb(_name, _item))
 
 
 def _on_device(verb):
@@ -1602,22 +1643,44 @@ for _name in protocol.METHODS:
             _on_device(getattr(TepdistServicer, _name)))
 
 
+def heavy_rpc_slots(max_workers: int) -> Optional[int]:
+    """The heavy-handler concurrency bound from TEPDIST_HEAVY_RPC_SLOTS:
+    0 = auto (a quarter of the pool, at least 2), negative = unbounded
+    (None), positive = that many — always leaving at least one pool
+    thread free for control verbs."""
+    knob = int(ServiceEnv.get().tepdist_heavy_rpc_slots)
+    if knob < 0:
+        return None
+    slots = knob if knob > 0 else max(2, max_workers // 4)
+    return max(1, min(slots, max_workers - 1))
+
+
 def create_server(port: int, devices=None, task_index: int = 0,
                   max_workers: int = 8):
     """A gRPC server over generic (bytes-in/bytes-out) handlers; a
-    handler that raises aborts its call with INTERNAL and the repr."""
+    handler that raises aborts its call with INTERNAL and the repr.
+    Heavy verbs (``HEAVY_VERBS``) first take a slot of a bounded gate
+    (``heavy_rpc_slots``); control verbs bypass it."""
     import grpc
 
     servicer = TepdistServicer(devices, task_index)
+    slots = heavy_rpc_slots(max_workers)
+    gate = threading.BoundedSemaphore(slots) if slots is not None else None
     handlers = {}
     for m in protocol.METHODS:
         fn = getattr(servicer, m)
 
         def make(fn=fn, m=m):
+            heavy = gate is not None and m in HEAVY_VERBS
+
             def handler(request, context):
                 try:
                     with wire_ledger.server_scope(m):
-                        resp = fn(request, context)
+                        if heavy:
+                            with gate:
+                                resp = fn(request, context)
+                        else:
+                            resp = fn(request, context)
                     if isinstance(resp, protocol.Frames):
                         resp = resp.join()
                     return resp

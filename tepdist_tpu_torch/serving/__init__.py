@@ -1,5 +1,5 @@
-"""Continuous-batching inference serving on one device: the port of
-``tepdist_tpu/serving`` (single engine).
+"""Continuous-batching inference serving: the port of
+``tepdist_tpu/serving`` (engines, their client and the fleet).
 
 Layers (bottom-up):
 
@@ -18,10 +18,18 @@ Layers (bottom-up):
     in-flight requests (greedy ones re-prefilled from prompt+prefix),
     sheds load past a queue watermark, and only fails requests once the
     restart budget is spent.
+  * client.py  — ServeClient: drives the serve verbs over any
+    TepdistClient transport (``inproc:`` or gRPC), with round-robin
+    placement, a per-replica circuit breaker, and failover past
+    open/overloaded/draining replicas.
+  * fleet.py   — the disaggregated fleet: planner-sharded servables
+    (models too big for one device's HBM load as pipeline stages priced
+    by parallel/exploration.py, with greedy tokens equal to
+    single-device sample()) and FleetRouter's prefill/decode pools with
+    page-table-aware KV handoff over ExportPages/AdoptPages.
 
-The JAX package's RPC client (``client.py``) and disaggregated fleet
-(``fleet.py``) are not ported yet. Everything here runs on the card
-(``device="cuda"``) unless the caller passes ``device="cpu"``.
+Everything here runs on the card (``device="cuda"``) unless the caller
+passes ``device="cpu"`` (the servicers' device, for the fleet).
 """
 
 from tepdist_tpu_torch.serving.kv_cache import (KVFreeError, ServableModel,
@@ -35,10 +43,18 @@ from tepdist_tpu_torch.serving.paged_kv import (PageError, PagePool,
 from tepdist_tpu_torch.serving.engine import (TERMINAL, ServeRequest,
                                               ServingEngine)
 from tepdist_tpu_torch.serving.supervisor import ServingSupervisor
+from tepdist_tpu_torch.serving.client import ServeClient, ServeOverloadError
+from tepdist_tpu_torch.serving.fleet import (FleetRouter, ShardedServable,
+                                             StageServable,
+                                             load_fleet_servable,
+                                             load_sharded)
 
 __all__ = [
     "ServableModel", "SlotPool", "KVFreeError", "bucket_for",
     "default_buckets", "PageError", "PagePool", "PageTable",
     "PagedServableModel", "PrefixCache", "derive_n_pages", "pages_for",
     "ServeRequest", "ServingEngine", "TERMINAL", "ServingSupervisor",
+    "ServeClient", "ServeOverloadError", "FleetRouter",
+    "ShardedServable", "StageServable", "load_fleet_servable",
+    "load_sharded",
 ]

@@ -120,7 +120,10 @@ sys.exit(1 if bad else 0)
     "tepdist_tpu_torch.parallel.redistribution",
     "tepdist_tpu_torch.runtime.migration",
     "tepdist_tpu_torch.runtime.controlplane",
-    "tepdist_tpu_torch.runtime.distributed_executor"])
+    "tepdist_tpu_torch.runtime.distributed_executor",
+    # Fleet serving and the lockdep lint.
+    "tepdist_tpu_torch.serving.fleet",
+    "tepdist_tpu_torch.analysis.lockdep"])
 def test_planner_module_imports_no_jax(module):
     """Each module of the planner (both parts) and of the service imported
     alone in a fresh interpreter."""
@@ -129,3 +132,36 @@ def test_planner_module_imports_no_jax(module):
                          cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+_TOOL_PROBE = """
+import sys
+sys.path.insert(0, "tools")
+sys.argv = [sys.argv[1]] + sys.argv[2:]
+import runpy
+try:
+    runpy.run_path("tools/" + sys.argv[0] + ".py", run_name="__main__")
+except SystemExit as e:
+    if e.code:
+        raise
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "tepdist_tpu.",
+                                            "grpc."))
+             or m in ("tepdist_tpu", "ml_dtypes", "optax", "grpc"))
+print(bad)
+sys.exit(3 if bad else 0)
+"""
+
+
+@pytest.mark.parametrize("tool,args", [
+    ("torch_lockdep", ["--check"]),
+    ("torch_fidelity_report", ["--device", "cpu", "--steps", "1"])])
+def test_port_tool_imports_no_jax(tool, args):
+    """The port's tools run (the lint over the package, the fidelity
+    fixture on the CPU) in a fresh interpreter without importing jax or
+    anything of the JAX package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _TOOL_PROBE, tool, *args],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=180)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]

@@ -38,7 +38,7 @@ from tepdist_tpu_torch.core.service_env import ServiceEnv
 from tepdist_tpu_torch.optim import adam, adamw, optimizer_spec, sgd
 from tepdist_tpu_torch.rpc import inproc, protocol, retry
 from tepdist_tpu_torch.rpc.client import TepdistClient
-from tepdist_tpu_torch.rpc.server import LATER_VERBS, TepdistServicer
+from tepdist_tpu_torch.rpc.server import HEAVY_VERBS, TepdistServicer
 
 torch.set_num_threads(2)
 
@@ -383,13 +383,68 @@ def test_execute_plan_failure_invalidates_donated_vars():
     assert 0 not in servicer.variables
 
 
-def test_later_verbs_name_their_items():
-    address, servicer = _servicer()
+def _stage_slices(address, dtype):
+    """GPT-2 ``test`` (port weights, ``dtype``) loaded as two STAGE
+    servables on the server at ``address`` (``LoadServable`` with a
+    ``stage``), then a prefill of 9 tokens and one decode step chained
+    through ``ExecuteServableSlice``; each answer against the port's
+    ``sampling._forward_with_cache`` on the same weights, and stage 0's
+    activations against the same layer range run locally: equal bit for
+    bit, in ``dtype`` on the wire."""
+    from tepdist_tpu_torch.models import gpt2
+    from tepdist_tpu_torch.models.sampling import (_forward_with_cache,
+                                                   init_cache)
+    from tepdist_tpu_torch.serving.fleet import (_stage_step_impl,
+                                                 resolve_leaf,
+                                                 stage_param_names)
+    from tepdist_tpu_torch.serving.kv_cache import config_to_spec
+
+    cfg = dataclasses.replace(gpt2.CONFIGS["test"], dtype=dtype)
+    params = gpt2.init_params(cfg, seed=0, device="cpu")
     client = TepdistClient(address)
-    for verb, item in LATER_VERBS.items():
-        with pytest.raises(retry.ServerError, match=f"item {item}"):
-            client.call(verb, {})
-    inproc.unregister_servicer(address)
+    sids = []
+    for lo, hi in ((0, 1), (1, 2)):
+        first, last = lo == 0, hi == cfg.n_layer
+        names = stage_param_names(cfg, lo, hi, first, last)
+        sids.append(client.load_servable(
+            config_to_spec(cfg), [resolve_leaf(params, n) for n in names],
+            max_len=32, name=f"s{lo}",
+            stage={"lo": lo, "hi": hi, "first": first, "last": last,
+                   "names": names}))
+    prompt = torch.arange(1, 10).reshape(1, -1)
+    cache = init_cache(cfg, 1, 32, "cpu")
+    local = init_cache(cfg, 1, 32, "cpu")
+    for op, toks, pos in (("prefill", prompt, 0),
+                          ("decode", torch.tensor([[7]]), 9)):
+        h = client.execute_servable_slice(sids[0], op, toks, pos=pos)
+        want_h = _stage_step_impl(params, toks, local["k"][:1],
+                                  local["v"][:1], pos, cfg=cfg, lo=0, hi=1,
+                                  first=True, last=False)
+        assert h.dtype == dtype and torch.equal(h, want_h)
+        got = client.execute_servable_slice(sids[1], op, h, pos=pos)
+        want = _forward_with_cache(params, toks, cache, pos, cfg)
+        assert got.dtype == torch.float32 and torch.equal(got, want)
+    client.close()
+
+
+def test_later_verbs_name_their_items():
+    """The verbs that once refused naming a later item (the stage
+    ``LoadServable`` and ``ExecuteServableSlice``, item 17) now run on a
+    servicer over ``inproc:``, fp32 and bf16 activations on the wire, and
+    join the gRPC server's heavy gate."""
+    assert {"LoadServable", "ExecuteServableSlice"} <= HEAVY_VERBS
+    for dtype in (torch.float32, torch.bfloat16):
+        address, servicer = _servicer()
+        _stage_slices(address, dtype)
+        assert [sv.stats()["stage"] for sv in servicer.servables.values()
+                ] == [[0, 1], [1, 2]]
+        servicer.close_servables()
+        inproc.unregister_servicer(address)
+
+
+def test_stage_servable_over_grpc(server):
+    """The same two stages and chained slices over gRPC."""
+    _stage_slices(server, torch.float32)
 
 
 def test_plan_over_more_ranks_than_the_server_names_15b():
