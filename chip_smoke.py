@@ -73,8 +73,10 @@ calls (``plan_training`` + ``plan.step``, ``plan.save``/``restore``,
    steps: losses within PIPELINE_LOSS_RTOL of the plan phase's, the sixth
    below the first, launches 2LM / LM / LM a step (768 / 384 / 384), step
    seconds, peak memory, the seconds in each kind of task body of a
-   traced seventh step and a profiled eighth; then each kernel against its
-   plain version at the pipeline's micro batch [6*25, 1024, 64];
+   traced seventh step (no profiled step: it made room for the examples
+   and tools phases; its earlier reading stays in PERF.md); then each
+   kernel against its plain version at the pipeline's micro batch
+   [6*25, 1024, 64];
 5e2. pipeline_dp: the same model, seed and batches as 2 stages x 2
    intra-stage data replicas over [cuda:0] * 4 (``plan_training(
    num_stages=2, num_micro_batches=8, devices=[cuda:0] * 4)``) for 3
@@ -82,8 +84,9 @@ calls (``plan_training`` + ``plan.step``, ``plan.save``/``restore``,
    ``PipelineExecutable`` for 3: losses within
    PIPELINE_LOSS_RTOL of the pipeline phase's (ZeRO: of the plain run's),
    launches 2LMR / LMR / LMR a step (1536 / 768 / 768), the predicted
-   makespan and bubble, step seconds, peak memory, a profiled step; then
-   each kernel at a replica's micro batch [3*25, 1024, 64];
+   makespan and bubble, step seconds, peak memory (no profiled step:
+   its earlier reading stays in PERF.md); then each kernel at a
+   replica's micro batch [3*25, 1024, 64];
 5e3. collective: GPT-2 1.5B's 48 blocks as 4 stages of the collective
    pipeline over [cuda:0] * 4 (``gpt2.pipelined_loss_fn``, batch 12 in 4
    micro batches of 3 rows): the loss against ``loss_fn_stacked`` on the
@@ -101,9 +104,9 @@ calls (``plan_training`` + ``plan.step``, ``plan.save``/``restore``,
    flash ring over [cuda:0] * 4 as attention (hops of [4*25, 256, 64])
    through ``plan_training``: 6 steps, losses within SEQ_STEP_LOSS_RTOL of
    the slice's, 2*L*M*10 forward and L*M*10 dQ and dK/dV launches a step,
-   step seconds beside the slice's, peak memory, a seventh step profiled
-   as the slice's is; then the kernels at that hop shape, causal and
-   full;
+   step seconds beside the slice's, peak memory (no profiled step: its
+   earlier reading stays in PERF.md); then the kernels at that hop
+   shape, causal and full;
 5h. seq_plan: Llama 1B's width cut to 2 layers, batch 1 x 16384, planned
    for 8 devices on the host: ``explore`` with its sequence candidates
    (each priced, ring or Ulysses, the winner, the search seconds), then
@@ -155,6 +158,22 @@ calls (``plan_training`` + ``plan.step``, ``plan.save``/``restore``,
    ``tools/torch_fidelity_report.py --trace`` on the merged trace the
    fleet phase dumped of its unfaulted step: the fitted constants and the
    step error before and after calibration.
+
+14. examples (after serve_fleet): the user's entry points called through
+   their ``main(argv)``: ``examples_torch/llama/train.py --config 1B
+   --attn flash --batch 4 --seq 512 --steps 6`` (full width and depth,
+   ``auto_parallel`` on data = 1 lowered to DTensor; planner seconds, step
+   seconds, 16 launches of each kernel a step), ``examples_torch/GPT2/
+   main.py --steps 6`` with a copy of ``examples_torch/GPT2/1.5B.json``
+   cut to 24 layers (EXAMPLE_GPT2_CUT; batch 8 x 512, einsum, bf16, full
+   width; planner seconds, peak memory, no flash launch) and ``examples_torch/smoke_testing/simple.py --steps 3``
+   through a ``TepdistServicer`` on the card at an ``inproc:`` address
+   reached by ``SERVER_IP``/``SERVER_PORT``; finite losses, the last below
+   the first (simple.py's falling each step);
+15. tools: ``tools/torch_chaos_run.py``'s fleet, ``--kill-worker`` and
+   ``--serve`` arms on in-process workers on the card, each passing its
+   own assertion, and ``tools/torch_serve_load.py --config 1.5B
+   --workers 2`` (every request done; TTFT p50 / p99, tokens/s).
 
 Then one ``{"kernels": [...]}`` line (a row for each kernel at each
 path's shape) and, last, the ``{"ok": true, ...}`` line. Every JSON line
@@ -1308,7 +1327,6 @@ def phase_pipeline(eager_losses, eager_micro: int):
     launches = dict(fa.launch_counts)
     peak = torch.cuda.max_memory_allocated()
     steady = seconds[1:]
-    median = sorted(steady)[len(steady) // 2]
     # A diagnostic seventh step with the executor's spans on: host seconds
     # in each kind of task body (they include any wait for the launch
     # queue), per micro batch.
@@ -1375,7 +1393,6 @@ def phase_pipeline(eager_losses, eager_micro: int):
         raise SystemExit(f"chip_smoke: loss did not fall {losses}")
     if any(step != want for step in per_step):
         raise SystemExit(f"chip_smoke: launches {per_step} != {want}")
-    _profile_step("GPT-2 1.5B pipeline", lambda: plan.step(tokens), median)
     del plan, exe
     torch.cuda.empty_cache()
     return launches, losses
@@ -1632,8 +1649,8 @@ def phase_pipeline_dp(pipe_losses):
     in a new ``PipelineExecutable``. 3 steps plain, 3 with ZeRO: losses
     within PIPELINE_LOSS_RTOL of the pipeline phase's, ZeRO's of the plain
     run's, launches 2LMR / LMR / LMR a step; the predicted makespan and
-    bubble (4 devices, ``h100`` entry), step seconds, peak memory, and a
-    profiled step of the plain run. Returns the plain run's launches (the
+    bubble (4 devices, ``h100`` entry), step seconds and peak memory.
+    Returns the plain run's launches (the
     path's own, counted from 0)."""
     import torch
 
@@ -1687,7 +1704,6 @@ def phase_pipeline_dp(pipe_losses):
             plain_launches = dict(fa.launch_counts)
         peak = torch.cuda.max_memory_allocated()
         steady = seconds[1:]
-        median = sorted(steady)[len(steady) // 2]
         sched, prog = exe.schedule, exe.prog
         ref = runs["plain"]["losses"] if zero else pipe_losses
         rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
@@ -1727,9 +1743,6 @@ def phase_pipeline_dp(pipe_losses):
                              f"differ from {ref}")
         if any(st != want for st in per_step):
             raise SystemExit(f"chip_smoke: launches {per_step} != {want}")
-        if not zero:
-            _profile_step("GPT-2 1.5B pipeline_dp", lambda: step(tokens),
-                          median)
         del exe, step
         if not zero:
             del plan
@@ -2155,8 +2168,6 @@ def phase_seq_step(slice_losses, slice_seconds):
                          f"{grad_gaps[worst]} from the kernels'")
     if any(step != want for step in per_step):
         raise SystemExit(f"chip_smoke: launches {per_step} != {want}")
-    _profile_step("GPT-2 1.5B ring", lambda: plan.step(tokens),
-                  sorted(steady)[len(steady) // 2])
     del plan, params
     torch.cuda.empty_cache()
     return total
@@ -3616,6 +3627,178 @@ def phase_serve_fleet(fp32_results, trace_path) -> None:
     torch.cuda.empty_cache()
 
 
+# examples phase: the user's entry points (examples_torch/), called through
+# their main(argv) in this process. Llama 1B with the flash kernels at
+# full width and depth; the GPT-2 1.5B JSON example at its own batch and
+# sequence (einsum, bf16: no flash launch), full width, depth cut to
+# EXAMPLE_GPT2_LAYERS (EXAMPLE_GPT2_CUT); simple.py through a servicer on
+# the card reached by SERVER_IP/PORT.
+EXAMPLE_LLAMA = ["--config", "1B", "--attn", "flash", "--batch", "4",
+                 "--seq", "512", "--steps", "6"]
+EXAMPLE_GPT2_JSON = "examples_torch/GPT2/1.5B.json"
+EXAMPLE_GPT2_LAYERS = 24
+EXAMPLE_GPT2_CUT = ("depth cut from 48 to 24 layers (full width): at 48 "
+                    "the example's auto_parallel plans in 80.7-90.2 s and "
+                    "the whole script took 1012.8 s by phase on an "
+                    "H100 80GB HBM3 at 700 W)")
+EXAMPLE_GPT2 = ["--steps", "6"]
+EXAMPLE_SIMPLE = ["--steps", "3"]
+EXAMPLE_INPROC_PORT = 14001
+
+
+def _loss_falls(name: str, losses) -> None:
+    if not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"chip_smoke: non-finite {name} loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise SystemExit(f"chip_smoke: {name} loss did not fall {losses}")
+
+
+def phase_examples() -> dict:
+    """``examples_torch/llama/train.py`` (auto_parallel on data = 1,
+    the flash kernels: L launches of each a step, a warm step and 6
+    printed ones), ``examples_torch/GPT2/main.py`` with the 1.5B JSON at
+    EXAMPLE_GPT2_LAYERS (planner seconds, step seconds, peak memory, no
+    flash launch) and
+    ``examples_torch/smoke_testing/simple.py`` through a ``TepdistServicer``
+    on the card at ``inproc:EXAMPLE_INPROC_PORT`` (``SERVER_IP=inproc``):
+    every loss finite, the last below the first (simple.py's falling step
+    by step). Returns the Llama example's launches."""
+    import torch
+
+    from examples_torch.GPT2 import main as gpt2_example
+    from examples_torch.llama import train as llama_example
+    from examples_torch.smoke_testing import simple
+    from tepdist_tpu_torch.ops import flash_attention as fa
+    from tepdist_tpu_torch.rpc import inproc
+    from tepdist_tpu_torch.rpc.server import TepdistServicer
+
+    smi = nvidia_smi()
+    seconds, runs = {}, {}
+    with open(EXAMPLE_GPT2_JSON) as f:
+        gpt2_json = dict(json.load(f), n_layer=EXAMPLE_GPT2_LAYERS)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_gpt2_")
+    gpt2_config = os.path.join(workdir, "1.5B.json")
+    with open(gpt2_config, "w") as f:
+        json.dump(gpt2_json, f)
+    for name, module, argv in (
+            ("llama", llama_example, EXAMPLE_LLAMA),
+            ("gpt2", gpt2_example,
+             ["--config", gpt2_config] + EXAMPLE_GPT2)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = module.main(argv)
+        seconds[name] = time.perf_counter() - t0
+        out["launches"] = dict(fa.launch_counts)
+        out["steps_run"] = len(out["losses"]) + 1
+        out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        out["argv"] = argv
+        runs[name] = out
+    shutil.rmtree(workdir, ignore_errors=True)
+    runs["gpt2"]["cut"] = EXAMPLE_GPT2_CUT
+    llama = runs["llama"]
+    L = 16
+    llama["expected_launches"] = {n: L * llama["steps_run"] for n in KERNELS}
+    address = f"inproc:{EXAMPLE_INPROC_PORT}"
+    inproc.register_servicer(address, TepdistServicer(["cuda"]))
+    saved = {k: os.environ.get(k) for k in ("SERVER_IP", "SERVER_PORT")}
+    os.environ.update(SERVER_IP="inproc",
+                      SERVER_PORT=str(EXAMPLE_INPROC_PORT))
+    t0 = time.perf_counter()
+    try:
+        runs["simple"] = simple.main(EXAMPLE_SIMPLE)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        inproc.unregister_servicer(address)
+    seconds["simple"] = time.perf_counter() - t0
+    emit({"phase": "examples", "nvidia_smi": smi,
+          "budget_seconds": 150, "seconds": seconds,
+          "llama": llama, "gpt2": runs["gpt2"],
+          "simple": {"address": address, "route": "SERVER_IP=inproc",
+                     "losses": runs["simple"]["losses"],
+                     "summary": runs["simple"]["summary"]}})
+    _loss_falls("llama example", llama["losses"])
+    _loss_falls("GPT-2 1.5B example", runs["gpt2"]["losses"])
+    s_losses = runs["simple"]["losses"]
+    if not all(b < a for a, b in zip(s_losses, s_losses[1:])):
+        raise SystemExit(f"chip_smoke: simple.py losses {s_losses} do not "
+                         "fall")
+    if llama["launches"] != llama["expected_launches"]:
+        raise SystemExit(f"chip_smoke: llama example launches "
+                         f"{llama['launches']} != "
+                         f"{llama['expected_launches']}")
+    if any(runs["gpt2"]["launches"].values()):
+        raise SystemExit(f"chip_smoke: the GPT-2 example (einsum) launched "
+                         f"{runs['gpt2']['launches']}")
+    torch.cuda.empty_cache()
+    return llama["launches"]
+
+
+def _load_tool(name: str):
+    """A ``tools/`` script as a module (the directory is no package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tools", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+TOOLS_CHAOS_ARMS = (("fleet", []),
+                    ("kill_worker", ["--steps", "6", "--kill-worker", "3"]),
+                    ("serve", ["--serve"]))
+TOOLS_SERVE_LOAD = ["--config", "1.5B", "--workers", "2"]
+
+
+def phase_tools() -> None:
+    """``tools/torch_chaos_run.py``'s fleet, ``--kill-worker`` and
+    ``--serve`` arms on the card (in-process workers on cuda:0), each
+    passing its own assertion, then ``tools/torch_serve_load.py --config
+    1.5B --workers 2``: every request done, TTFT p50 / p99 and tokens/s.
+    The ``--kill-master`` arm needs gRPC subprocesses: CPU tests only."""
+    import torch
+
+    from tepdist_tpu_torch.ops import flash_attention as fa
+
+    chaos = _load_tool("torch_chaos_run")
+    load = _load_tool("torch_serve_load")
+    smi = nvidia_smi()
+    arms, seconds = {}, {}
+    fa.reset_launch_counts()
+    for name, argv in TOOLS_CHAOS_ARMS:
+        t0 = time.perf_counter()
+        arms[name] = chaos.main(argv + ["--device", "cuda"])
+        seconds[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    summary = load.main(TOOLS_SERVE_LOAD + ["--device", "cuda"])
+    seconds["serve_load"] = time.perf_counter() - t0
+    flash = dict(fa.launch_counts)
+    emit({"phase": "tools", "nvidia_smi": smi, "budget_seconds": 60,
+          "seconds": seconds, "chaos": arms,
+          "serve_load": {k: summary[k] for k in (
+              "requests", "statuses", "wall_s", "tokens", "tokens_per_s",
+              "ttft_ms", "token_ms", "prefills", "decode_steps",
+              "pages_used_after_drain")},
+          "serve_load_argv": TOOLS_SERVE_LOAD, "flash_launches": flash})
+    failed = [name for name, out in arms.items() if not out["ok"]]
+    if failed:
+        raise SystemExit(f"chip_smoke: chaos arms failed: {failed}")
+    if summary["statuses"] != {"done": summary["requests"]}:
+        raise SystemExit(f"chip_smoke: serve_load statuses "
+                         f"{summary['statuses']}")
+    if any(flash.values()):
+        raise SystemExit(f"chip_smoke: the tools launched flash kernels "
+                         f"{flash}")
+    torch.cuda.empty_cache()
+
+
 def _time_chunk(eng) -> dict:
     """Device ms of one 256-token prefill chunk of the bf16 engine (chunk
     executable plus page insert), with no history and with 256 tokens of
@@ -3746,6 +3929,11 @@ def main() -> int:
     mark("serve_rpc")
     phase_serve_fleet(fp32_serving, FLEET_TRACE)
     mark("serve_fleet")
+    # The user's entry points: the examples and the fleet tools.
+    example_launches = phase_examples()
+    mark("examples")
+    phase_tools()
+    mark("tools")
     emit({"phase": "timing", "phase_seconds": seconds,
           "total_seconds": sum(seconds.values())})
     rows = []
@@ -3776,7 +3964,10 @@ def main() -> int:
              pipe_dp_case, pipe_dp_launches),
             (f"[{COLL_BATCH // COLL_MICRO}*25, 1024, 64] bf16 causal (GPT-2 "
              f"1.5B collective phase: 4 stages, M = {COLL_MICRO})",
-             pipe_dp_case, coll_launches)):
+             pipe_dp_case, coll_launches),
+            ("[4*16, 512, 128] bf16 causal (Llama 1B, examples phase: "
+             "examples_torch/llama/train.py --attn flash, auto_parallel "
+             "on data = 1, 7 steps)", llama_case, example_launches)):
         for name, (source, replaces) in KERNELS.items():
             r = case[name]
             rows.append({"name": name, "shape": shape, "route": "cuda",

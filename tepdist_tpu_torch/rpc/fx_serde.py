@@ -118,6 +118,13 @@ def encode_graph(gm: fx.GraphModule) -> Tuple[Dict[str, Any], List[Any]]:
                           **_val_meta(n)})
         elif n.op == "get_attr":
             const = getattr(gm, n.target)
+            if isinstance(const, torch.Generator):
+                # A sampler's generator (models/sampling.py) crosses as
+                # its seed and is made anew on the receiving device.
+                nodes.append({"op": "get_attr", "name": n.name,
+                              "target": n.target,
+                              "generator_seed": const.initial_seed()})
+                continue
             if not isinstance(const, torch.Tensor):
                 raise SerdeError(f"attribute {n.target} is not a tensor")
             meta, blob = protocol.encode_literal(const)
@@ -210,6 +217,14 @@ def _dec(a, env: Dict[str, fx.Node], device: Optional[torch.device]):
     return a
 
 
+def _fresh_attr(root: torch.nn.Module, attr) -> str:
+    if (not isinstance(attr, str) or not attr.isidentifier()
+            or attr.startswith("__") or hasattr(root, attr)):
+        raise SerdeError(f"constant name {attr!r} is not a fresh "
+                         "attribute name")
+    return attr
+
+
 def decode_graph(header: Dict[str, Any], blobs: Sequence[Any],
                  device=None) -> fx.GraphModule:
     """The ``fx.GraphModule`` of a wire form, on ``device`` (every
@@ -225,21 +240,28 @@ def decode_graph(header: Dict[str, Any], blobs: Sequence[Any],
     graph = fx.Graph()
     env: Dict[str, fx.Node] = {}
     specs: List[Tuple[List[int], torch.dtype]] = []
+    generators: Dict[str, torch.Generator] = {}
     for nd in header["nodes"]:
         op = nd.get("op")
         if op == "placeholder":
             node = graph.placeholder(nd["name"])
             specs.append((nd["shape"], protocol.torch_dtype(nd["dtype"])))
+        elif op == "get_attr" and "generator_seed" in nd:
+            # Every draw of one generator reads the same attribute.
+            attr = nd["target"]
+            if attr not in generators:
+                attr = _fresh_attr(root, attr)
+                generators[attr] = torch.Generator(
+                    device=device or "cpu").manual_seed(
+                        int(nd["generator_seed"]))
+                setattr(root, attr, generators[attr])
+            node = graph.create_node("get_attr", attr, name=nd["name"])
         elif op == "get_attr":
             const = protocol.decode_literal(nd["literal"],
                                             blobs[int(nd["blob"])]).clone()
             if device is not None:
                 const = const.to(device)
-            attr = nd["target"]
-            if (not isinstance(attr, str) or not attr.isidentifier()
-                    or attr.startswith("__") or hasattr(root, attr)):
-                raise SerdeError(f"constant name {attr!r} is not a fresh "
-                                 "attribute name")
+            attr = _fresh_attr(root, nd["target"])
             root.register_buffer(attr, const)
             node = graph.create_node("get_attr", attr, name=nd["name"])
         elif op == "call_function":

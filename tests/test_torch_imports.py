@@ -165,3 +165,40 @@ def test_port_tool_imports_no_jax(tool, args):
                          cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=180)
     assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+
+
+_FILE_PROBE = """
+import importlib.util, sys
+spec = importlib.util.spec_from_file_location("probe_module", sys.argv[1])
+module = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(module)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "tepdist_tpu.",
+                                            "grpc."))
+             or m in ("tepdist_tpu", "ml_dtypes", "optax", "grpc"))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+_EXAMPLE_FILES = sorted(
+    os.path.relpath(os.path.join(d, f), ROOT)
+    for d, _, files in os.walk(os.path.join(ROOT, "examples_torch"))
+    for f in files if f.endswith(".py"))
+
+
+def test_every_example_is_probed():
+    assert len(_EXAMPLE_FILES) >= 12, _EXAMPLE_FILES
+
+
+@pytest.mark.parametrize("path", _EXAMPLE_FILES + [
+    "tools/torch_chaos_run.py", "tools/torch_serve_load.py"])
+def test_examples_and_tools_import_no_jax(path):
+    """Each script of ``examples_torch/`` and the two fleet tools,
+    imported alone in a fresh interpreter: no jax, nothing of the JAX
+    package, no optax or ml_dtypes, and no grpc at import time (the
+    scripts open channels inside functions)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _FILE_PROBE, path],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
