@@ -165,7 +165,7 @@ calls (``plan_training`` + ``plan.step``, ``plan.save``/``restore``,
    ``auto_parallel`` on data = 1 lowered to DTensor; planner seconds, step
    seconds, 16 launches of each kernel a step), ``examples_torch/GPT2/
    main.py --steps 6`` with a copy of ``examples_torch/GPT2/1.5B.json``
-   cut to 24 layers (EXAMPLE_GPT2_CUT; batch 8 x 512, einsum, bf16, full
+   cut to 8 layers (EXAMPLE_GPT2_CUT; batch 8 x 512, einsum, bf16, full
    width; planner seconds, peak memory, no flash launch) and ``examples_torch/smoke_testing/simple.py --steps 3``
    through a ``TepdistServicer`` on the card at an ``inproc:`` address
    reached by ``SERVER_IP``/``SERVER_PORT``; finite losses, the last below
@@ -174,6 +174,17 @@ calls (``plan_training`` + ``plan.step``, ``plan.save``/``restore``,
    ``--serve`` arms on in-process workers on the card, each passing its
    own assertion, and ``tools/torch_serve_load.py --config 1.5B
    --workers 2`` (every request done; TTFT p50 / p99, tokens/s).
+16. explore_tools (last): a ``TepdistServicer`` over ``[cuda:0] * 4``
+   behind ``inproc:`` explores GPT-2 1.5B width at 4 layers for a session
+   with no mesh axes (SPMD meshes over its one-rank world, pipeline cuts
+   over its device list), builds its pipeline winner and trains 3 steps
+   (the third loss below the first, every flash kernel launched); then
+   the read-only tools on this run's files: ``torch_plan_explain --trace
+   --check`` on the phase's trace, ``torch_trace_summary`` and
+   ``torch_ledger_report --trace`` on the fleet phase's traced step,
+   ``torch_request_trace --trace`` on serve_rpc's trace, and
+   ``torch_verify_plan``'s report on the pipeline phase's program (no
+   finding). A tool that fails fails the run.
 
 Then one ``{"kernels": [...]}`` line (a row for each kernel at each
 path's shape) and, last, the ``{"ok": true, ...}`` line. Every JSON line
@@ -184,7 +195,9 @@ when no CUDA device is present or when run outside the repository.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import itertools
 import json
 import math
@@ -1261,7 +1274,8 @@ def phase_pipeline(eager_losses, eager_micro: int):
     it (1F1B, the native core) and trains 6 steps on the plan phase's
     batches. The four stages share the card, so they run one after
     another; the scheduler's makespan is predicted for four devices.
-    Returns the kernels' launches over the six steps."""
+    Returns the kernels' launches over the six steps, the losses and
+    ``tools/torch_verify_plan.py``'s report on the program (text)."""
     import copy
 
     import torch
@@ -1305,6 +1319,13 @@ def phase_pipeline(eager_losses, eager_micro: int):
         verify_plan(dag, schedule=sched, prog=prog)
     except PlanVerificationError as e:
         findings.append(str(e))
+    # tools/torch_verify_plan.py's report on this program and schedule
+    # (the explore_tools phase prints it).
+    verify_text = io.StringIO()
+    with contextlib.redirect_stdout(verify_text):
+        if _load_tool("torch_verify_plan").report(
+                prog, dag, sched, where="chip_smoke pipeline") is None:
+            findings.append(verify_text.getvalue())
     gated = exe.verify_report is not None
     probe = TaskScheduler(copy.deepcopy(dag), device_type=exe.device_type)
     native_same = (probe._simulate(2, use_native=True).order
@@ -1395,7 +1416,7 @@ def phase_pipeline(eager_losses, eager_micro: int):
         raise SystemExit(f"chip_smoke: launches {per_step} != {want}")
     del plan, exe
     torch.cuda.empty_cache()
-    return launches, losses
+    return launches, losses, verify_text.getvalue()
 
 
 # fleet phase: the pipeline phase's recipe (GPT-2 1.5B at full width,
@@ -1460,7 +1481,8 @@ def _arm_until_fence(servicer, spec) -> None:
 def phase_fleet():
     """GPT-2 1.5B through ``DistributedPipelineSession`` over in-process
     workers on card 0 (module comment at FLEET_*). Returns the kernels'
-    launches over the FLEET_STEPS steps."""
+    launches over the FLEET_STEPS steps and the one-process executable's
+    fastest step of the same program (ms)."""
     import torch
 
     from tepdist_tpu_torch import telemetry
@@ -1475,6 +1497,7 @@ def phase_fleet():
     from tepdist_tpu_torch.runtime.distributed_executor import (
         DistributedPipelineSession)
     from tepdist_tpu_torch.runtime.executor import PipelineExecutable
+    from tepdist_tpu_torch.telemetry import ledger as wire_ledger
     from tepdist_tpu_torch.telemetry import metrics
 
     torch.cuda.empty_cache()
@@ -1491,7 +1514,11 @@ def phase_fleet():
     exe = PipelineExecutable(prog, devices=[torch.device("cuda", 0)]
                              * PIPE_STAGES, optimizer=adamw_bf16(1e-4))
     exe.load_variables(tree_map(lambda t: t.clone(), params))
-    ref = [exe.step(tokens) for _ in range(FLEET_STEPS + 1)]
+    ref, ref_s = [], []
+    for _ in range(FLEET_STEPS + 1):
+        t0 = time.perf_counter()
+        ref.append(exe.step(tokens))     # returns after a device sync
+        ref_s.append(time.perf_counter() - t0)
     del exe
     torch.cuda.empty_cache()
     # The raw-data push (the reference fleet's hop); tickets would make
@@ -1536,15 +1563,20 @@ def phase_fleet():
         t1 = time.perf_counter()
         sess.save()
         save_s = time.perf_counter() - t1
-        # The unfaulted step runs traced: its merged trace (every
-        # worker's spans, the simulator's predicted timeline in the
-        # metadata) is the serve_fleet phase's fidelity input.
+        # The unfaulted step runs traced, with the RPC ledger on: its
+        # merged trace (every worker's spans, the simulator's predicted
+        # timeline and the fleet's ledger in the metadata) is the
+        # serve_fleet phase's fidelity input and the explore_tools
+        # phase's trace_summary and ledger_report input.
         tracer = telemetry.configure(enabled=True, capacity=1 << 18)
         tracer.clear()
+        wire_ledger.configure(enabled=True)
+        wire_ledger.ledger().clear()
         t1 = time.perf_counter()
         clean = sess.step(tokens)
         clean_s = time.perf_counter() - t1
         trace_path = sess.dump_trace(path=FLEET_TRACE, clear=True)
+        wire_ledger.configure(enabled=False)
         telemetry.configure(enabled=False)
         t1 = time.perf_counter()
         sess.restore(FLEET_STEPS)
@@ -1558,6 +1590,7 @@ def phase_fleet():
         after = metrics().snapshot()["counters"]
     finally:
         faults.configure(None)
+        wire_ledger.configure(enabled=False)
         if sess is not None:
             sess.close()
         close_inproc_cluster(cluster)
@@ -1626,7 +1659,8 @@ def phase_fleet():
     if any(step != want for step in per_step):
         raise SystemExit(f"chip_smoke: fleet launches {per_step} != {want}")
     torch.cuda.empty_cache()
-    return launches
+    # The one-process step of this program: ledger_report's --single-ms.
+    return launches, min(ref_s[1:]) * 1e3
 
 
 # Pipeline stages over several devices (ROADMAP item 13b), one card in the
@@ -3203,6 +3237,7 @@ def phase_serve_rpc(fp32_results) -> None:
     from tepdist_tpu_torch.rpc import inproc
     from tepdist_tpu_torch.rpc.server import TepdistServicer
     from tepdist_tpu_torch.serving.client import ServeClient
+    from tepdist_tpu_torch.telemetry import flight
 
     smi = nvidia_smi()
     base = gpt2.CONFIGS["1.5B"]
@@ -3233,11 +3268,16 @@ def phase_serve_rpc(fp32_results) -> None:
                                              capacity=1 << 16)
                 tracer.clear()
             fa.reset_launch_counts()
+            if timed:
+                flight.recorder().clear()
             run = _serve_rpc_run(sc, schedule)
             snap = telemetry.metrics().snapshot()
             spans = tracer.snapshot() if timed else []
             if timed:
                 telemetry.configure(enabled=False)
+                # The timed run's flight recording, merged: the
+                # explore_tools phase's request_trace input.
+                sc.dump_trace(path=SERVE_RPC_TRACE)
             out[str(dtype)] = dict(run=run, handoff=handoff, load_s=load_s,
                                    snap=snap, spans=spans,
                                    flash=dict(fa.launch_counts))
@@ -3636,11 +3676,11 @@ def phase_serve_fleet(fp32_results, trace_path) -> None:
 EXAMPLE_LLAMA = ["--config", "1B", "--attn", "flash", "--batch", "4",
                  "--seq", "512", "--steps", "6"]
 EXAMPLE_GPT2_JSON = "examples_torch/GPT2/1.5B.json"
-EXAMPLE_GPT2_LAYERS = 24
-EXAMPLE_GPT2_CUT = ("depth cut from 48 to 24 layers (full width): at 48 "
-                    "the example's auto_parallel plans in 80.7-90.2 s and "
-                    "the whole script took 1012.8 s by phase on an "
-                    "H100 80GB HBM3 at 700 W)")
+EXAMPLE_GPT2_LAYERS = 8
+EXAMPLE_GPT2_CUT = ("depth cut from 48 to 8 layers (full width): at 48 "
+                    "the example's auto_parallel plans in 80.7-90.2 s, at "
+                    "24 the phase took 93.9 s and the whole script "
+                    "1035.2 s on an H100 80GB HBM3 at 700 W)")
 EXAMPLE_GPT2 = ["--steps", "6"]
 EXAMPLE_SIMPLE = ["--steps", "3"]
 EXAMPLE_INPROC_PORT = 14001
@@ -3799,6 +3839,185 @@ def phase_tools() -> None:
     torch.cuda.empty_cache()
 
 
+# explore_tools phase (ROADMAP C13 and item 18). Budget: 120 s.
+# - explore: GPT-2 1.5B at full width (1600 wide, 25 heads, vocab 50257,
+#   seq 1024, flash, adamw_bf16), EXPLORE_LAYERS deep, batch EXPLORE_BATCH
+#   in EXPLORE_MICRO micro batches, through TepdistSession.compile_training
+#   with no mesh axes against a TepdistServicer over [cuda:0] *
+#   EXPLORE_DEVICES behind an inproc: address: the servicer explores
+#   (SPMD meshes over its one-rank world, pipeline cuts over its device
+#   list), builds the winner and trains EXPLORE_STEPS steps; the third
+#   loss must be below the first, each flash kernel must launch.
+# - tools: torch_plan_explain --trace --check on this phase's dump_trace();
+#   torch_trace_summary and torch_ledger_report --trace (with --single-ms,
+#   the one-process pipeline step of the same program) on the fleet
+#   phase's traced step; torch_request_trace --trace on serve_rpc's
+#   ServeClient.dump_trace(); torch_verify_plan's report on the pipeline
+#   phase's program and schedule (run there, while they live). A tool
+#   that raises or returns non-zero fails the run.
+EXPLORE_LAYERS, EXPLORE_BATCH, EXPLORE_MICRO = 4, 8, 4
+EXPLORE_DEVICES, EXPLORE_STEPS = 4, 3
+EXPLORE_TRACE = os.path.join("chiprun_out", "explore_trace.json")
+SERVE_RPC_TRACE = os.path.join("chiprun_out", "serve_rpc_trace.json")
+TOOLS_TEXT = os.path.join("chiprun_out", "explore_tools.txt")
+
+
+def _run_tool(name, argv, texts):
+    """``tools/torch_<name>.py``'s ``main(argv)``, its printed text kept
+    in ``texts``; fails the run unless it returns 0."""
+    import contextlib
+    import io
+
+    tool = _load_tool(f"torch_{name}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = tool.main(argv)
+    texts[name] = out["text"]
+    if out["rc"]:
+        raise SystemExit(f"chip_smoke: tools/torch_{name}.py {argv} "
+                         f"returned {out['rc']}:\n{out['text'][-2000:]}")
+    return out
+
+
+def phase_explore_tools(verify_text: str, fleet_single_ms: float):
+    """The explored pipeline and the read-only tools (module comment at
+    EXPLORE_*), given the pipeline phase's verifier report and the fleet
+    phase's one-process step (ms). Returns the kernels' launches over the
+    steps and the rows a replica's flash calls take."""
+    import torch
+    import torch.distributed as dist
+
+    from tepdist_tpu_torch.client.session import TepdistSession
+    from tepdist_tpu_torch.core.service_env import ServiceEnv
+    from tepdist_tpu_torch.models import gpt2
+    from tepdist_tpu_torch.ops import flash_attention as fa
+    from tepdist_tpu_torch.optim import adamw_bf16, optimizer_spec
+    from tepdist_tpu_torch.rpc import inproc
+    from tepdist_tpu_torch.rpc.server import TepdistServicer
+    from tepdist_tpu_torch.runtime.executor import stage_replicas
+
+    smi = nvidia_smi()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    cfg = _config(EXPLORE_LAYERS)
+    params = gpt2.init_params(cfg, seed=0, device="cuda")
+    tokens = gpt2.fake_batch(cfg, EXPLORE_BATCH, SEQ, seed=0, device="cuda")
+    had_world = dist.is_initialized()
+    ServiceEnv.reset()
+    servicer = TepdistServicer([torch.device("cuda", 0)] * EXPLORE_DEVICES)
+    address = "inproc:14501"
+    inproc.register_servicer(address, servicer)
+    try:
+        sess = TepdistSession(address)
+        t0 = time.perf_counter()
+        summary = sess.compile_training(
+            lambda p, t: gpt2.loss_fn(p, t, cfg), adamw_bf16(1e-4), params,
+            tokens, num_micro_batches=EXPLORE_MICRO,
+            optimizer_spec=optimizer_spec("adamw_bf16", learning_rate=1e-4))
+        compile_s = time.perf_counter() - t0
+        del params
+        losses, seconds = [], []
+        fa.reset_launch_counts()
+        for _ in range(EXPLORE_STEPS):
+            t0 = time.perf_counter()
+            losses.append(sess.run(tokens))
+            seconds.append(time.perf_counter() - t0)
+        launches = dict(fa.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        trace_path = sess.dump_trace(path=EXPLORE_TRACE)
+        sess.close()
+    finally:
+        inproc.unregister_servicer(address)
+        ServiceEnv.reset()
+        if dist.is_initialized() and not had_world:
+            dist.destroy_process_group()
+        del servicer
+        torch.cuda.empty_cache()
+    explore_s = time.perf_counter() - t_phase
+    explored = summary.get("explored", {})
+    S = summary.get("num_stages")
+    tp = summary.get("intra_tp", 1)
+    R = (stage_replicas(EXPLORE_DEVICES, S, tp, summary.get("placement",
+                                                             "blocked"),
+                        summary.get("interleave_groups"))
+         if summary.get("kind") == "pipeline" else None)
+    texts = {}
+    tools = {"plan_explain": _run_tool(
+        "plan_explain", ["--trace", trace_path, "--check"], texts)}
+    tools["trace_summary"] = _run_tool("trace_summary", [FLEET_TRACE], texts)
+    tools["ledger_report"] = _run_tool(
+        "ledger_report", ["--trace", FLEET_TRACE, "--single-ms",
+                          str(fleet_single_ms)], texts)
+    tools["request_trace"] = _run_tool(
+        "request_trace", ["--trace", SERVE_RPC_TRACE], texts)
+    texts["verify_plan"] = verify_text
+    with open(TOOLS_TEXT, "w") as f:
+        for name, text in texts.items():
+            f.write(f"==== tools/torch_{name}.py\n{text}\n")
+    # Every in-process server reads the one flight recorder, so the
+    # merged trace holds each request's events once a process: no copy
+    # may deliver a request twice (a cancelled one may deliver none).
+    rows = {}
+    for ev in tools["request_trace"]["events"]:
+        rows.setdefault((ev.get("rid"), ev.get("proc")), []).append(
+            ev.get("ev"))
+    led = tools["ledger_report"]["report"]["gap_table"].get("aggregate")
+    ts = tools["trace_summary"]["summary"]
+    emit({"phase": "explore_tools", "model": "GPT-2 1.5B",
+          "nvidia_smi": smi, "budget_seconds": 120,
+          "n_layer": cfg.n_layer, "n_embd": cfg.n_embd,
+          "batch": EXPLORE_BATCH, "seq": SEQ,
+          "micro_batches": EXPLORE_MICRO,
+          "devices": f"[cuda:0] * {EXPLORE_DEVICES} (one-rank servicer, "
+                     "inproc:)",
+          "winner": {"kind": summary.get("kind", "spmd"),
+                     "config": next((c["config"] for c in explored.get(
+                         "candidates", []) if c["winner"]), None), "S": S,
+                     "M": summary.get("num_micro_batches"), "tp": tp,
+                     "R": R, "placement": summary.get("placement"),
+                     "axes": summary.get("axes")},
+          "candidates": explored.get("candidates", [])[:12],
+          "n_candidates": len(explored.get("candidates", [])),
+          "planner_seconds": summary.get("planner_seconds"),
+          "compile_training_seconds": compile_s,
+          "losses": losses, "step_seconds": seconds,
+          "max_memory_allocated_bytes": peak,
+          "flash_launches": launches, "explore_seconds": explore_s,
+          "tools": {
+              "plan_explain": texts["plan_explain"].splitlines()[-2:],
+              "trace_summary": {"n_events": ts["n_events"],
+                                "category_ms": ts["category_ms"],
+                                "workers": ts["workers"]},
+              "ledger_report_aggregate": led,
+              "request_trace": {
+                  "requests": len({rid for rid, _ in rows if rid != "*"}),
+                  "processes": len({proc for _, proc in rows}),
+                  "deliver_each": sorted({
+                      names.count("deliver")
+                      for (rid, _), names in rows.items() if rid != "*"})},
+              "verify_plan": texts["verify_plan"].splitlines()[:1],
+              "text": TOOLS_TEXT},
+          "seconds": time.perf_counter() - t_phase})
+    if summary.get("kind") != "pipeline":
+        raise SystemExit(f"chip_smoke: the explore picked "
+                         f"{summary.get('axes')} at 1.5B width, not a "
+                         "pipeline")
+    if not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"chip_smoke: explore_tools non-finite loss "
+                         f"{losses}")
+    if not losses[2] < losses[0]:
+        raise SystemExit(f"chip_smoke: explore_tools loss did not fall "
+                         f"{losses}")
+    if not all(launches.get(n) for n in KERNELS):
+        raise SystemExit(f"chip_smoke: explore_tools launches {launches}")
+    twice = sorted(str(key) for key, names in rows.items()
+                   if names.count("deliver") > 1)
+    if not rows or twice:
+        raise SystemExit(f"chip_smoke: serve_rpc's flight trace delivers "
+                         f"twice in {twice} ({len(rows)} copies)")
+    return launches, EXPLORE_BATCH // EXPLORE_MICRO // R
+
+
 def _time_chunk(eng) -> dict:
     """Device ms of one 256-token prefill chunk of the bf16 engine (chunk
     executable plus page insert), with no history and with 256 tokens of
@@ -3869,7 +4088,7 @@ def main() -> int:
     rpc_launches = phase_rpc(PLAN_BATCH // plan_mb, plan_losses,
                              spmd_seconds)
     mark("rpc")
-    pipe_launches, pipe_losses = phase_pipeline(
+    pipe_launches, pipe_losses, verify_text = phase_pipeline(
         plan_losses, PLAN_BATCH // plan_mb)
     # The pipeline path's kernels at its micro batch.
     pipe_mb = PLAN_BATCH // PIPE_MICRO
@@ -3878,7 +4097,7 @@ def main() -> int:
         seed=300, time_it=True)
     mark("pipeline")
     # The fleet pipeline: the same program over in-process workers.
-    fleet_launches = phase_fleet()
+    fleet_launches, fleet_single_ms = phase_fleet()
     mark("fleet")
     # Stages over several devices (one card): intra-stage replicas, ZeRO,
     # the collective pipeline; the kernels at a replica's micro batch.
@@ -3934,6 +4153,12 @@ def main() -> int:
     mark("examples")
     phase_tools()
     mark("tools")
+    explore_launches, explore_rows = phase_explore_tools(verify_text,
+                                                         fleet_single_ms)
+    explore_case = _checked_case("explore_path", dict(
+        B=explore_rows, H=25, T=SEQ, D=64, dtype=torch.bfloat16,
+        causal=True), seed=700, time_it=True)
+    mark("explore_tools")
     emit({"phase": "timing", "phase_seconds": seconds,
           "total_seconds": sum(seconds.values())})
     rows = []
@@ -3967,7 +4192,11 @@ def main() -> int:
              pipe_dp_case, coll_launches),
             ("[4*16, 512, 128] bf16 causal (Llama 1B, examples phase: "
              "examples_torch/llama/train.py --attn flash, auto_parallel "
-             "on data = 1, 7 steps)", llama_case, example_launches)):
+             "on data = 1, 7 steps)", llama_case, example_launches),
+            (f"[{explore_rows}*25, 1024, 64] bf16 causal (GPT-2 1.5B "
+             f"explore_tools phase: the explored pipeline over [cuda:0] * "
+             f"{EXPLORE_DEVICES}, {EXPLORE_LAYERS} layers, "
+             f"{EXPLORE_STEPS} steps)", explore_case, explore_launches)):
         for name, (source, replaces) in KERNELS.items():
             r = case[name]
             rows.append({"name": name, "shape": shape, "route": "cuda",

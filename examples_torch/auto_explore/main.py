@@ -32,6 +32,11 @@ from examples_torch import common
 from examples_torch.smoke_testing.simple import spawn_local_server
 
 DEPTH, WIDTH, BATCH = 8, 512, 16
+# The server's cost-model knobs by regime: 'pipeline' emulates a
+# DCN-bound, memory-tight cluster.
+REGIME_ENV = {"auto": {},
+              "pipeline": {"HBM_GB": "0.01", "ICI_BANDWIDTH": "0.05",
+                           "COMM_OVERLAP": "0.0"}}
 
 
 def parse_args(argv=None):
@@ -53,19 +58,21 @@ def loss_fn(params, x, y):
     return ((h - y) ** 2).mean()
 
 
-def run(args, params=None, batch=None):
+def run(args, params=None, batch=None, address=None):
     """Explore on the server and train; ``params`` (``w0``..``w7``) and
-    ``batch`` ((x, y)) default to seeded normal draws. Returns the
-    summary, the candidates and the losses."""
+    ``batch`` ((x, y)) default to seeded normal draws. ``address`` names a
+    server the caller started (an ``inproc:`` servicer over a device
+    list, say, whose environment the caller set for ``--regime``); by
+    default a local server is spawned. Returns the summary, the
+    candidates and the losses."""
     from tepdist_tpu_torch.client.session import TepdistSession
     from tepdist_tpu_torch.optim import optimizer_spec, sgd
     from tepdist_tpu_torch.rpc.client import TepdistClient
 
-    extra_env = {}
-    if args.regime == "pipeline":
-        extra_env = {"HBM_GB": "0.01", "ICI_BANDWIDTH": "0.05",
-                     "COMM_OVERLAP": "0.0"}
-    proc, port = spawn_local_server(args.device, extra_env)
+    proc = None
+    if address is None:
+        proc, port = spawn_local_server(args.device, REGIME_ENV[args.regime])
+        address = f"127.0.0.1:{port}"
     if params is None:
         gen = torch.Generator().manual_seed(0)
         scale = (2.0 / WIDTH) ** 0.5
@@ -76,10 +83,10 @@ def run(args, params=None, batch=None):
     x, y = batch
     losses = []
     try:
-        c = TepdistClient(f"127.0.0.1:{port}")
+        c = TepdistClient(address)
         c.wait_ready(60)
         c.close()
-        sess = TepdistSession(f"127.0.0.1:{port}")   # NO mesh_axes
+        sess = TepdistSession(address)   # NO mesh_axes
         summary = sess.compile_training(
             loss_fn, sgd(0.01), params, x, y,
             num_micro_batches=4,
@@ -100,8 +107,9 @@ def run(args, params=None, batch=None):
             print(f"step {i}: loss = {losses[-1]:.6f}", flush=True)
         sess.close()
     finally:
-        proc.send_signal(signal.SIGKILL)
-        proc.wait()
+        if proc is not None:
+            proc.send_signal(signal.SIGKILL)
+            proc.wait()
     return {"winner": explored.get("winner"),
             "kind": summary.get("kind", "spmd"), "axes": summary.get("axes"),
             "candidates": explored.get("candidates", []), "losses": losses}

@@ -215,18 +215,34 @@ class TepdistSession:
                 "num_micro_batches": num_micro_batches,
             }
             b0 = tree_leaves(example_batch)[0]
-            if num_micro_batches > 1 and b0.shape[0] % num_micro_batches == 0:
-                # Micro-shape loss trace for the server's pipeline
+            M = max(int(num_micro_batches), 1)
+            if b0.shape[0] % M == 0:
+                # Micro-shape loss traces for the server's pipeline
                 # proposals (a capture bakes its trace shape:
-                # plan_pipeline's micro-trace contract, same helper).
+                # plan_pipeline's micro-trace contract, same helper): the
+                # micro batch's, and a replica's share of it for every
+                # replica count the server may give a stage (a stage over
+                # R intra-stage replicas is captured at rows / R; R divides
+                # the rows and is at most half the server's devices).
                 from tepdist_tpu_torch.parallel.pipeline import (
                     micro_abstract_batch)
 
-                micro = micro_abstract_batch(example_batch,
-                                             num_micro_batches)
-                graph, _, _ = trace_graph(loss_fn, params, *micro)
-                extras["micro_loss_module"] = fx_serde.serialize_graph(
-                    graph.gm)
+                rows = b0.shape[0] // M
+                if M > 1:
+                    micro = micro_abstract_batch(example_batch, M)
+                    graph, _, _ = trace_graph(loss_fn, params, *micro)
+                    extras["micro_loss_module"] = fx_serde.serialize_graph(
+                        graph.gm)
+                n_dev = int(self.client.ping().get("n_devices", 1))
+                shares = []
+                for r in range(2, min(rows, n_dev // 2) + 1):
+                    if rows % r == 0:
+                        share = micro_abstract_batch(example_batch, M,
+                                                     replicas=r)
+                        graph, _, _ = trace_graph(loss_fn, params, *share)
+                        shares.append(fx_serde.serialize_graph(graph.gm))
+                if shares:
+                    extras["replica_loss_modules"] = shares
         return self.compile_train_step(
             step_fn, params, opt_state, *example_batch,
             annotations=annotations, init_specs=init_specs,

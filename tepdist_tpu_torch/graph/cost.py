@@ -9,6 +9,15 @@ convolution cost 2 x output elements x contracted size, and everything
 else one flop per output element, with memory traffic as the sum of
 operand and result bytes (the HBM-bound view).
 
+A contraction's operand layouts are free: ``dot_general`` takes its
+batch and contracting dimensions as numbers, so the jaxpr holds no
+equation for the reshapes, broadcasts and transposes that feed aten's
+``mm``/``bmm`` or reshape its result. Those nodes (``FOLDED_VIEWS``) cost
+nothing where every consumer is a contraction or another such node, and a
+reshape of a contraction's result costs nothing; anywhere else they cost
+one flop per output element, as a jaxpr's ``reshape`` or ``transpose``
+does (``fold_view_flops``).
+
 The flash-attention ops cost one flop per output element, as the reference
 prices its ``pallas_call`` (``eqn_flops`` falls through to the elementwise
 rule there). That undercounts attention on both sides alike.
@@ -66,6 +75,51 @@ def node_flops(prim: str, in_vals: Iterable[Any], out_vals) -> float:
         return 2.0 * val_size(out_vals[0]) * kernel_spatial * w.shape[1]
     # Elementwise / data movement / opaque: one flop per output element.
     return float(sum(val_size(v) for v in out_vals))
+
+
+# Layout nodes that ``dot_general``'s dimension numbers absorb.
+FOLDED_VIEWS = frozenset({"view", "_unsafe_view", "unsqueeze", "expand",
+                          "permute", "t"})
+_RESHAPES = frozenset({"view", "_unsafe_view"})
+_TRANSPOSES = frozenset({"permute", "t"})
+_BATCHED_MATMULS = frozenset({"bmm", "baddbmm"})
+
+
+def fold_view_flops(nodes, users) -> None:
+    """Zero the flops of the ``FOLDED_VIEWS`` nodes among ``nodes`` (in
+    topological order) that only lay out a contraction's operands, or its
+    result; ``users(node)`` are a node's consumers. A transpose keeps its
+    price next to a plain ``mm``: the jaxpr writes ``x @ w.T`` with a
+    ``transpose`` equation too, where an ``einsum``'s batched contraction
+    absorbs its operands' and its result's permutations."""
+    def layout_ok(n, contractions) -> bool:
+        return n.prim not in _TRANSPOSES or contractions <= _BATCHED_MATMULS
+
+    feeds: dict = {}     # node id -> the contractions its chain feeds
+    for n in reversed(nodes):
+        if n.prim not in FOLDED_VIEWS:
+            continue
+        reach = set()
+        for u in users(n):
+            if u.prim in MATMULS:
+                reach.add(u.prim)
+            elif u.id in feeds:
+                reach |= feeds[u.id]
+            else:
+                reach = None
+                break
+        if reach and layout_ok(n, reach):
+            feeds[n.id] = reach
+            n.flops = 0.0
+    source: dict = {}    # node id -> the contraction its result chain left
+    for n in nodes:
+        if n.prim not in FOLDED_VIEWS or len(n.operands) != 1:
+            continue
+        op = n.operands[0]
+        src = op.prim if op.prim in MATMULS else source.get(op.id)
+        if src is not None and layout_ok(n, {src}):
+            source[n.id] = src
+            n.flops = 0.0
 
 
 def node_bytes(in_vals: Iterable[Any], out_vals) -> float:

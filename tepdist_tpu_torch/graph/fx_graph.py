@@ -39,7 +39,8 @@ import torch.fx as fx
 
 from tepdist_tpu_torch.core.tree import (tree_leaves, tree_structure,
                                          tree_unflatten)
-from tepdist_tpu_torch.graph.cost import (COMPUTE_INTENSIVE, node_bytes,
+from tepdist_tpu_torch.graph.cost import (COMPUTE_INTENSIVE,
+                                          fold_view_flops, node_bytes,
                                           node_flops, tensor_vals, val_bytes)
 
 Var = fx.Node
@@ -199,6 +200,7 @@ class FxGraph:
                         seen.add(op.id)
                         node.operands.append(op)
                         op.users.append(node)
+        fold_view_flops(self.nodes, lambda n: n.users)
         self.compute_ranks()
 
     # -- queries ----------------------------------------------------------

@@ -33,7 +33,7 @@ import dataclasses
 import logging
 import math
 import time
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from tepdist_tpu_torch.core.service_env import ServiceEnv
 from tepdist_tpu_torch.telemetry import observatory, span
@@ -242,7 +242,8 @@ def seq_candidates(graph, n_devices: int,
 def pipeline_candidates(loss_fn: Callable, params, example_batch,
                         n_devices: int, batch_rows: int,
                         num_micro_batches: int = 4,
-                        micro_options=None) -> List[Dict[str, Any]]:
+                        micro_options=None,
+                        stage_tp: bool = True) -> List[Dict[str, Any]]:
     """Pipeline stage-cut proposals S x M x intra-stage-TP (reference: up
     to 3 split ordinals incl. the stage level, auto_parallel.cc:132-181):
     each tp variant re-prices the SAME stage cut with per-stage compute
@@ -252,7 +253,17 @@ def pipeline_candidates(loss_fn: Callable, params, example_batch,
     even S with an interleaved variant over S/2 groups.
 
     ``micro_options``: explicit M proposals (the serving planner prices
-    M = 1 only: a request is one sequence)."""
+    M = 1 only: a request is one sequence).
+
+    A stage over R intra-stage replicas runs modules captured at a
+    replica's share of the micro batch (``plan_pipeline(replicas=R)``), so
+    a placement is proposed only where R divides the micro rows.
+    ``stage_tp=False`` proposes no intra-stage TP: the stages run in one
+    process (``PipelineExecutable``'s device-list form), which cannot hold
+    the ranks of a TP group."""
+    def replicas_ok(M, R):
+        return (batch_rows // M) % R == 0
+
     from tepdist_tpu_torch.core.mesh import MeshTopology
     from tepdist_tpu_torch.core.tree import tree_leaves
     from tepdist_tpu_torch.parallel.evaluator import Evaluator
@@ -308,6 +319,20 @@ def pipeline_candidates(loss_fn: Callable, params, example_batch,
                         "enumeration_skip",
                         message=f"tp={tp} does not fit the {per} "
                                 "devices per stage")
+                    continue
+                if tp > 1 and not stage_tp:
+                    observatory.record_prune(
+                        "pipeline", f"S={S} M={M} tp={tp}",
+                        "enumeration_skip",
+                        message=f"tp={tp}: one process cannot hold the "
+                                "ranks of a TP group")
+                    continue
+                if not replicas_ok(M, per // tp):
+                    observatory.record_prune(
+                        "pipeline", f"S={S} M={M} tp={tp}",
+                        "enumeration_skip",
+                        message=f"{batch_rows // M} micro rows do not "
+                                f"split over {per // tp} replicas")
                     continue
                 try:
                     dag, _ = build_pipeline_task_dag(prog, stage_devs)
@@ -406,6 +431,13 @@ def pipeline_candidates(loss_fn: Callable, params, example_batch,
                                 f"{n_devices} devices")
                     continue
                 per_g = n_devices // G
+                if not replicas_ok(M, per_g):
+                    observatory.record_prune(
+                        "pipeline", f"S={S} M={M} il/G={G}",
+                        "enumeration_skip",
+                        message=f"{batch_rows // M} micro rows do not "
+                                f"split over {per_g} replicas")
+                    continue
                 groups = [tuple(range(g * per_g, (g + 1) * per_g))
                           for g in range(G)]
                 try:
@@ -468,6 +500,8 @@ def explore(
     include_pipeline: bool = True,
     include_seq: bool = True,
     pipeline_micro_options=None,
+    pipeline_devices: Optional[int] = None,
+    pipeline_stage_tp: bool = True,
     entry_point: str = "explore",
 ) -> Dict[str, Any]:
     """Exploration over the unified candidate space (reference:
@@ -486,11 +520,18 @@ def explore(
     proposal lands in the winner's ``best["report"]``
     (``telemetry/observatory.ExplorationReport``) as a priced candidate
     or a typed prune record, with phase timings and the winner's
-    rationale."""
+    rationale.
+
+    ``n_devices`` counts the ranks an SPMD or seq mesh spans (one device a
+    rank); ``pipeline_devices`` (by default ``n_devices``) the devices the
+    stage groups are cut from, which one process may hold together (a
+    device list, ``runtime/executor.py``'s one-process form, where
+    ``pipeline_stage_tp=False`` since that form holds no TP group)."""
     from tepdist_tpu_torch.core.tree import tree_leaves
     from tepdist_tpu_torch.graph.fx_graph import trace_graph
     from tepdist_tpu_torch.train import value_and_grad
 
+    n_pipe = pipeline_devices or n_devices
     with observatory.capture(entry_point) as col:
         t0 = time.perf_counter()
         with span("explore:trace", cat="planner"):
@@ -519,8 +560,9 @@ def explore(
             batch_rows = tree_leaves(example_batch)[0].shape[0]
             with span("explore:pipeline", cat="planner"):
                 candidates += pipeline_candidates(
-                    loss_fn, params, example_batch, n_devices, batch_rows,
-                    num_micro_batches, micro_options=pipeline_micro_options)
+                    loss_fn, params, example_batch, n_pipe, batch_rows,
+                    num_micro_batches, micro_options=pipeline_micro_options,
+                    stage_tp=pipeline_stage_tp)
             if col is not None:
                 col.phase("pipeline", time.perf_counter() - t0)
         else:
@@ -528,7 +570,8 @@ def explore(
         if not candidates:
             if col is not None:
                 report = observatory.build_report(
-                    col, [], None, n_devices, entry_point=entry_point,
+                    col, [], None, max(n_devices, n_pipe),
+                    entry_point=entry_point,
                     excluded_kinds=excluded)
                 for w in report.warnings:
                     log.warning("exploration: %s", w)
@@ -543,7 +586,7 @@ def explore(
         best["excluded_kinds"] = excluded
         if col is not None:
             report = observatory.build_report(
-                col, candidates, best, n_devices,
+                col, candidates, best, max(n_devices, n_pipe),
                 excluded_kinds=excluded)
             best["report"] = report.to_dict()
     return best

@@ -242,6 +242,7 @@ class TepdistClient:
         init_seed: int = 0,
         loss_module: Optional[bytes] = None,
         micro_loss_module: Optional[bytes] = None,
+        replica_loss_modules: Optional[Sequence[bytes]] = None,
         n_param_leaves: Optional[int] = None,
         optimizer_spec: Optional[dict] = None,
         num_micro_batches: int = 1,
@@ -283,6 +284,13 @@ class TepdistClient:
                 # at batch/M, not a re-eval of the full-batch graph.
                 options["micro_loss_module_blob"] = len(blobs)
                 blobs.append(micro_loss_module)
+            if replica_loss_modules:
+                # The loss at a replica's share of the micro batch, for
+                # each replica count that divides its rows: a pipeline
+                # stage over R intra-stage replicas is captured there.
+                options["replica_loss_module_blobs"] = list(range(
+                    len(blobs), len(blobs) + len(replica_loss_modules)))
+                blobs.extend(replica_loss_modules)
         resp = self.call("BuildExecutionPlan", {"options": options}, blobs)
         header, _ = protocol.unpack(resp)
         return header

@@ -214,6 +214,11 @@ class _LossGraphs:
                 for n in gm.graph.nodes if n.op == "placeholder"]
         return vals[:self.n_params], vals[self.n_params:]
 
+    def has_batch(self, batch) -> bool:
+        """Whether a graph was shipped at ``batch``'s shapes."""
+        key = tuple(tuple(x.shape) for x in tree_leaves(batch))
+        return any(k[self.n_params:] == key for k in self.graphs)
+
     def __call__(self, plist, *batch):
         leaves = list(tree_leaves(plist)) + list(tree_leaves(batch))
         key = tuple(tuple(x.shape) for x in leaves)
@@ -403,6 +408,13 @@ class TepdistServicer:
             init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
             world_size=1, **({"device_id": self.device} if cuda else {}))
 
+    @staticmethod
+    def _world() -> int:
+        """The ranks an SPMD or seq mesh may span (one device a rank)."""
+        import torch.distributed as dist
+
+        return dist.get_world_size() if dist.is_initialized() else 1
+
     def _graph(self, blob) -> torch.fx.GraphModule:
         with span("planner:deserialize", cat="planner"):
             return fx_serde.deserialize_graph(blob, device=self.device)
@@ -422,6 +434,8 @@ class TepdistServicer:
         from tepdist_tpu_torch.optim import make_optimizer
         from tepdist_tpu_torch.parallel.exploration import (
             candidate_summary, explore)
+        from tepdist_tpu_torch.parallel.pipeline import (
+            micro_abstract_batch, on_rank0)
 
         n_p = int(opts["n_param_leaves"])
         full = self._graph(blobs[int(opts["loss_module_blob"])])
@@ -429,6 +443,9 @@ class TepdistServicer:
         if "micro_loss_module_blob" in opts:
             graphs.append(self._graph(
                 blobs[int(opts["micro_loss_module_blob"])]))
+        micro_ok = len(graphs) > 1
+        graphs += [self._graph(blobs[int(i)])
+                   for i in opts.get("replica_loss_module_blobs") or ()]
         loss = _LossGraphs(graphs, n_p)
         params, batch = loss.example(full, self.device)
         opt_spec = opts.get("optimizer_spec")
@@ -438,14 +455,48 @@ class TepdistServicer:
         # service explores pipeline cuts only at the CLIENT's M, for which
         # a micro trace was shipped; pipeline and seq winners re-compose
         # the step SERVER-side, which needs the optimizer's update rule.
-        micro_ok = len(graphs) > 1 or M == 1
-        include = optimizer is not None and micro_ok
-        best = explore(loss, params, *batch, n_devices=len(self.devices),
-                       num_micro_batches=M, include_pipeline=include,
-                       include_seq=include, entry_point="BuildExecutionPlan")
+        include = optimizer is not None and (micro_ok or M == 1)
+        # SPMD and seq meshes span the world's ranks. Pipeline stages are
+        # cut from a one-rank server's device list and run in one process,
+        # which holds no TP group; a multi-rank server proposes none (no
+        # client explores one, and nothing holds its group-form build to
+        # the reference).
+        world = self._world()
+        with_pipeline = include and world == 1
+        if with_pipeline:
+            # A stage over R intra-stage replicas is captured at a
+            # replica's share of the micro rows: every share the explore
+            # may propose (R <= devices / 2, R dividing the rows) must
+            # have been shipped.
+            rows = tree_leaves(batch)[0].shape[0] // M
+            missing = [
+                r for r in range(2, len(self.devices) // 2 + 1)
+                if rows % r == 0 and not loss.has_batch(
+                    micro_abstract_batch(tuple(batch), M, replicas=r))]
+            if missing:
+                raise ValueError(
+                    f"the client shipped no loss trace at a replica's "
+                    f"share of the {rows} micro rows for R in {missing} "
+                    f"(a server on {len(self.devices)} devices may place "
+                    "a stage over any of them)")
+
+        def search():
+            best = explore(
+                loss, params, *batch, n_devices=world,
+                pipeline_devices=len(self.devices), num_micro_batches=M,
+                include_pipeline=with_pipeline, include_seq=include,
+                pipeline_micro_options=[M], pipeline_stage_tp=False,
+                entry_point="BuildExecutionPlan")
+            return ({k: v for k, v in best.items()
+                     if k not in ("candidates", "strategies", "cost")},
+                    candidate_summary(best["candidates"], best))
+
+        # Rank 0 explores and sends the winner to every rank (the search
+        # has time limits, so ranks exploring alone could disagree).
+        best, rows = on_rank0(search)
         explored = {
             "winner": best["kind"],
-            "candidates": candidate_summary(best["candidates"], best),
+            "candidates": rows,
         }
         if "report" in best:
             # The full decision record rides the explore RPC (plain JSON
@@ -454,8 +505,9 @@ class TepdistServicer:
         if best.get("excluded_kinds"):
             explored["excluded_kinds"] = best["excluded_kinds"]
             explored["excluded_reason"] = (
-                "no optimizer_spec from client"
-                if optimizer is None else "no micro-shape loss trace")
+                "no optimizer_spec from client" if optimizer is None
+                else "no micro-shape loss trace" if not include
+                else "no pipeline on a multi-rank server")
         return best, loss, params, batch, optimizer, explored
 
     def _recompose_step(self, loss, optimizer, num_micro_batches,
@@ -621,7 +673,7 @@ class TepdistServicer:
                     return self._recompose_step(loss, optimizer, M_c, topo,
                                                 params, batch, n_state)
         if not axes:
-            axes = [["data", len(self.devices)]]
+            axes = [["data", self._world()]]
         topology = MeshTopology(
             [(a, int(n)) for a, n in axes],
             share_dev_flags=opts.get("share_dev_flags"))

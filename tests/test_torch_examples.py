@@ -17,10 +17,13 @@ printed loss must agree within 2e-4 absolute (the JAX example prints 4
 decimals; fp32 sums in another order, and data=8 against data=1, add
 less). Plan facts: the number of stages and the sequence mesh size
 equal; the stage cut equal (each stage's matmul flops equal exactly) and
-each printed stage's flops within 3%: the port's aten graph holds view
-and permute nodes that the jaxpr folds into ``dot_general``, and both
-cost models count one flop per element of a data-movement node (a 2.2%
-excess on the first GPT-2 ``test`` stage, none in the matmuls).
+each printed stage's flops within 2%: the layout nodes that
+``dot_general`` absorbs cost nothing in the port either
+(``graph/cost.py``'s ``fold_view_flops``), and what is left is mostly the
+loss's ``logsumexp``, one aten node where the jaxpr prices its
+exponentials and sums (a 1.6% shortfall on the second GPT-2 ``test``
+stage, 0.6% excess on the first against the JAX example's three printed
+digits; none in the matmuls).
 ``INTRA_STAGE_TP=2 VAR_MEM_LIMIT=6 MiB``: in both packages the example's
 ``PipelineExecutable`` takes no TP degree from the environment (only
 ``plan_training`` reads INTRA_STAGE_TP), so that line trains as the plain
@@ -51,7 +54,7 @@ torch.set_num_threads(2)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOSS_ATOL = 2e-4
-STAGE_FLOPS_RTOL = 0.03
+STAGE_FLOPS_RTOL = 0.02
 _LOSS = re.compile(r"loss ?= ?(-?[0-9.]+)")
 
 

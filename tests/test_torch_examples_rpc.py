@@ -11,11 +11,12 @@ own ``finally``), and ``launch_workers.py``'s process group in teardown.
 
 Tolerances: fp32 throughout; printed losses within 2e-4 absolute (the
 examples print 6 decimals), greedy tokens equal. ``auto_explore``: the
-port's server owns one device (its binary's ``--device``), so the JAX
+port's server binary owns one device (its ``--device``), so the JAX
 example's server is started with one CPU device too
 (``XLA_FLAGS=--xla_force_host_platform_device_count=1``, which the JAX
 example keeps when set) and the winners' kinds are compared on one
-device in both regimes.
+device in both regimes; then an in-process servicer on ``["cpu"] * 8``
+is held to the JAX server on 8 virtual devices.
 """
 
 import contextlib
@@ -57,11 +58,11 @@ def _run_jax(rel: str, argv) -> str:
     return buf.getvalue()
 
 
-def _run_port(module, argv, params=None, batch=None):
+def _run_port(module, argv, params=None, batch=None, **kw):
     args = module.parse_args(list(argv) + ["--device", "cpu"])
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        out = module.run(args, params=params, batch=batch)
+        out = module.run(args, params=params, batch=batch, **kw)
     return buf.getvalue(), out
 
 
@@ -168,14 +169,37 @@ def _explore_arrays():
             (torch.tensor(x), torch.tensor(y)))
 
 
+_JAX_EXPLORE = {}
+_ROW = re.compile(r"^\s*(spmd|pipeline|seq) (.+?)\s+([0-9.e+-]+)\s+"
+                  r"(True|False)( <== winner)?$", re.M)
+
+
+def _jax_explore(regime, n_devices, monkeypatch):
+    """The JAX example's output with its server on ``n_devices`` virtual
+    CPU devices (one run per regime and count in this module)."""
+    key = (regime, n_devices)
+    if key not in _JAX_EXPLORE:
+        with monkeypatch.context() as m:
+            m.setenv("XLA_FLAGS", "--xla_force_host_platform_device_count="
+                     f"{n_devices}")
+            _JAX_EXPLORE[key] = _run_jax(
+                "auto_explore/main.py",
+                ["--steps", "2", "--regime", regime])
+    return _JAX_EXPLORE[key]
+
+
+def _table(text):
+    """The printed candidate rows: (kind, config, seconds, fits, won)."""
+    return [(k, c.strip(), float(d), f == "True", bool(w))
+            for k, c, d, f, w in _ROW.findall(text)]
+
+
 @pytest.mark.parametrize("regime", ["auto", "pipeline"])
 def test_auto_explore(regime, monkeypatch):
     from examples_torch.auto_explore import main as auto_explore
 
-    monkeypatch.setenv("XLA_FLAGS",
-                       "--xla_force_host_platform_device_count=1")
     argv = ["--steps", "2", "--regime", regime]
-    jt = _run_jax("auto_explore/main.py", argv)
+    jt = _jax_explore(regime, 1, monkeypatch)
     params, batch = _explore_arrays()
     pt, out = _run_port(auto_explore, argv, params, batch)
     jwin = re.search(r"winner: (\w+)\s+\(plan kind: (\w+)", jt).groups()
@@ -183,6 +207,63 @@ def test_auto_explore(regime, monkeypatch):
     np.testing.assert_allclose(out["losses"], _losses(jt), rtol=0,
                                atol=LOSS_ATOL)
     assert any(c["winner"] for c in out["candidates"])
+
+
+@pytest.mark.parametrize("regime", ["auto", "pipeline"])
+def test_auto_explore_on_eight_devices(regime, monkeypatch):
+    """ROADMAP C13: a servicer on ``["cpu"] * 8`` (one rank, eight devices
+    in one process) builds and trains the candidate its explore picks.
+
+    The filter: a one-rank servicer builds an SPMD or seq mesh over one
+    rank, and a pipeline over its eight devices in one process, which
+    cannot hold the ranks of a TP group, so the winner it must pick is the
+    argmin (memory-feasible first, then seconds) of the JAX server's SPMD
+    and seq rows on one device and its pipeline rows on eight without
+    intra-stage TP. In the pipeline regime that departs from the JAX
+    winner on eight devices (``S=2 M=4 tp=2@int8``): the port picks the
+    best JAX row without ``tp=``, ``S=4 M=4@int8``; in the auto regime
+    the JAX argmin on eight is ``data=8``, which one rank cannot run.
+    Losses within ``LOSS_ATOL`` of the JAX run on eight devices (every
+    candidate computes the same fp32 step)."""
+    import torch.distributed as dist
+
+    from examples_torch.auto_explore import main as auto_explore
+    from tepdist_tpu_torch.core.service_env import ServiceEnv
+    from tepdist_tpu_torch.rpc import inproc
+    from tepdist_tpu_torch.rpc.server import TepdistServicer
+
+    j8 = _jax_explore(regime, 8, monkeypatch)
+    j1 = _jax_explore(regime, 1, monkeypatch)
+    # The JAX example prints its best rows in rank order, so the best
+    # pipeline without TP is among them if any is.
+    pipe = [r for r in _table(j8) if r[0] == "pipeline"
+            and " tp=" not in r[1]]
+    assert pipe, j8
+    rows = [r for r in _table(j1) if r[0] != "pipeline"] + pipe
+    want = min(rows, key=lambda r: (not r[3], r[2]))
+    if regime == "pipeline":
+        assert next(r for r in _table(j8) if r[4])[:2] == (
+            "pipeline", "S=2 M=4 tp=2@int8")
+        assert want[:2] == ("pipeline", "S=4 M=4@int8")
+    had_world = dist.is_initialized()
+    ServiceEnv.reset(auto_explore.REGIME_ENV[regime])
+    address = f"inproc:c13-{regime}"
+    inproc.register_servicer(address, TepdistServicer(["cpu"] * 8))
+    try:
+        params, batch = _explore_arrays()
+        pt, out = _run_port(auto_explore, ["--steps", "2", "--regime",
+                                           regime], params, batch,
+                            address=address)
+    finally:
+        inproc.unregister_servicer(address)
+        ServiceEnv.reset()
+        if dist.is_initialized() and not had_world:
+            dist.destroy_process_group()
+    won = next(c for c in out["candidates"] if c["winner"])
+    assert (won["kind"], won["config"]) == want[:2], (want, pt)
+    assert out["kind"] == want[0]
+    np.testing.assert_allclose(out["losses"], _losses(j8), rtol=0,
+                               atol=LOSS_ATOL)
 
 
 @pytest.fixture

@@ -288,3 +288,59 @@ def test_node_costs():
     assert cost.node_bytes([q, q, q], [q, lse]) == 4 * q.numel() * 2 + 960
     assert cost.COMPUTE_INTENSIVE == {"mm", "addmm", "bmm", "baddbmm",
                                       "convolution"}
+
+
+def _flops_by_prim(graph):
+    out = {}
+    for n in graph.nodes:
+        out.setdefault(n.prim, []).append(n.flops)
+    return out
+
+
+_LAYOUT_CASES = {
+    # A layer on [B, T, C] rows: view -> mm -> _unsafe_view in aten, one
+    # dot_general in the jaxpr.
+    "linear": (lambda x, w, v: x @ w, lambda x, w, v: x @ w),
+    # GPT-2's attention einsum: unsqueeze/permute/view -> bmm -> view/
+    # permute/view in aten, one dot_general in the jaxpr.
+    "heads": (lambda x, w, v: torch.einsum("bhqd,bhkd->bhqk", x, x),
+              lambda x, w, v: jnp.einsum("bhqd,bhkd->bhqk", x, x)),
+    # The same layouts feeding an add are priced in both (the jaxpr's
+    # reshape and transpose equations).
+    "reshape_add": (lambda x, w, v: x.reshape(2, -1) + 1.0,
+                    lambda x, w, v: x.reshape(2, -1) + 1.0),
+    "permute_add": (lambda x, w, v: x.permute(0, 2, 1, 3) + 1.0,
+                    lambda x, w, v: jnp.transpose(x, (0, 2, 1, 3)) + 1.0),
+    # ``a @ b.T`` holds transpose equations in the jaxpr too.
+    "transpose_mm": (lambda x, w, v: w.T @ v.T,
+                     lambda x, w, v: w.T @ v.T),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_LAYOUT_CASES))
+def test_layout_nodes_priced_as_the_jaxpr(case):
+    """ROADMAP C14: a ``view``/``permute`` (and ``_unsafe_view``,
+    ``unsqueeze``, ``expand``, ``t``) that only lays out a contraction's
+    operands or its result costs zero, as ``dot_general``'s dimension
+    numbers absorb it (a transpose only next to a batched contraction);
+    the same node feeding an ``add`` costs one flop per output element.
+    Each function's total flops equal the reference's jaxpr on the same
+    shapes."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 3, 2, 4)).astype(np.float32)
+    w = rng.standard_normal((4, 5)).astype(np.float32)
+    v = rng.standard_normal((6, 4)).astype(np.float32)
+    tf, jf = _LAYOUT_CASES[case]
+    graph, _, _ = trace_graph(tf, *map(torch.tensor, (x, w, v)))
+    jgraph, _, _ = jax_trace_graph(jf, *map(jnp.asarray, (x, w, v)))
+    assert graph.total_flops() == jgraph.total_flops()
+    prims = _flops_by_prim(graph)
+    if case in ("linear", "heads"):
+        layout = [f for p in cost.FOLDED_VIEWS for f in prims.get(p, [])]
+        assert layout and not any(layout)
+    if case.endswith("_add"):
+        node = "view" if case == "reshape_add" else "permute"
+        assert prims[node] == [float(x.size)]
+    if case == "transpose_mm":
+        assert sum(prims.get("permute", []) + prims.get("t", [])) == (
+            v.size + w.size)

@@ -155,11 +155,14 @@ sys.exit(3 if bad else 0)
 
 @pytest.mark.parametrize("tool,args", [
     ("torch_lockdep", ["--check"]),
-    ("torch_fidelity_report", ["--device", "cpu", "--steps", "1"])])
+    ("torch_fidelity_report", ["--device", "cpu", "--steps", "1"]),
+    ("torch_verify_plan", ["--device", "cpu", "--check"]),
+    ("torch_request_trace", ["--demo", "--device", "cpu"])])
 def test_port_tool_imports_no_jax(tool, args):
     """The port's tools run (the lint over the package, the fidelity
-    fixture on the CPU) in a fresh interpreter without importing jax or
-    anything of the JAX package."""
+    fixture, the plan verifier's self-test and the flight-recorder demo on
+    the CPU) in a fresh interpreter without importing jax or anything of
+    the JAX package."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _TOOL_PROBE, tool, *args],
                          cwd=ROOT, env=env, capture_output=True, text=True,
@@ -190,13 +193,20 @@ def test_every_example_is_probed():
     assert len(_EXAMPLE_FILES) >= 12, _EXAMPLE_FILES
 
 
+_READ_ONLY_TOOLS = [f"tools/torch_{name}.py" for name in (
+    "cli", "trace_summary", "plan_diff", "verify_plan", "plan_explain",
+    "ledger_report", "watch", "request_trace", "metrics_dump",
+    "obs_overhead", "run_fx")]
+
+
 @pytest.mark.parametrize("path", _EXAMPLE_FILES + [
-    "tools/torch_chaos_run.py", "tools/torch_serve_load.py"])
+    "tools/torch_chaos_run.py", "tools/torch_serve_load.py"]
+    + _READ_ONLY_TOOLS)
 def test_examples_and_tools_import_no_jax(path):
-    """Each script of ``examples_torch/`` and the two fleet tools,
-    imported alone in a fresh interpreter: no jax, nothing of the JAX
-    package, no optax or ml_dtypes, and no grpc at import time (the
-    scripts open channels inside functions)."""
+    """Each script of ``examples_torch/``, the two fleet drivers and the
+    read-only tools, imported alone in a fresh interpreter: no jax,
+    nothing of the JAX package, no optax or ml_dtypes, and no grpc at
+    import time (the scripts open channels inside functions)."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _FILE_PROBE, path],
                          cwd=ROOT, env=env, capture_output=True, text=True,

@@ -134,11 +134,12 @@ def _jax_service(loss, params, batch, steps, lr=1e-2):
     return losses, jax.device_get(state[0])
 
 
-def _port_service(addrs, loss, params, batch, steps, lr=1e-2):
+def _port_service(addrs, loss, params, batch, steps, lr=1e-2,
+                  mesh_axes=(("data", 4),)):
     from tepdist_tpu_torch.client.multihost import MultiHostSession
     from tepdist_tpu_torch.optim import adam
 
-    sess = MultiHostSession(addrs, mesh_axes=[("data", 4)])
+    sess = MultiHostSession(addrs, mesh_axes=list(mesh_axes))
     try:
         summary = sess.compile_training(
             loss, adam(lr), convert.to_torch(params, device="cpu"),
@@ -171,6 +172,19 @@ def test_multihost_mlp_matches_jax_service(addresses):
     np.testing.assert_allclose(tl, jl, rtol=LOSS_RTOL)
     _close(tp, jp)
     assert tl[-1] < tl[0]
+
+
+def test_multihost_default_mesh_spans_the_world(addresses):
+    """With no mesh axes a multi-rank server plans ``data`` over every
+    rank of its world (the JAX server's default mesh spans every
+    process's devices), not over the one device each rank holds."""
+    _, addrs = addresses
+    params, batch = _mlp_np()
+    tl, _, summary, _, _ = _port_service(addrs, _torch_mlp, params, batch,
+                                         2, mesh_axes=())
+    jl, _ = _jax_service(_jax_mlp, params, batch, 2)
+    assert summary["axes"] == [["data", 4]]
+    np.testing.assert_allclose(tl, jl, rtol=LOSS_RTOL)
 
 
 def test_multihost_gpt2_matches_jax_service(addresses):
