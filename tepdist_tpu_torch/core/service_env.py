@@ -270,6 +270,11 @@ class ServiceEnv:
                 return
         raise KeyError(f"unknown knob {name}")
 
+    def values(self) -> Dict[str, Any]:
+        """Every knob's value (``ServiceEnv.reset(values)`` rebuilds this
+        config in another process)."""
+        return dict(self._values)
+
     def __getattr__(self, name: str) -> Any:
         values = object.__getattribute__(self, "_values")
         key = name.upper()

@@ -431,14 +431,19 @@ def plan_on_rank0(graph: FxGraph, plan: Callable[[], Tuple]) -> Tuple:
     process group, sent to every other rank: the search has time limits,
     so two ranks planning alone may disagree, and ranks that run
     different placements of one program compute wrong values or hang in
-    a collective. Without a group (or on one rank), ``plan()`` itself."""
+    a collective. Without a group (or on one rank, or nested in a
+    decision rank 0 makes alone: ``pipeline.on_rank0``), ``plan()``
+    itself."""
     import torch.distributed as dist
 
-    if not dist.is_initialized() or dist.get_world_size() == 1:
+    from tepdist_tpu_torch.parallel import pipeline
+
+    if (not dist.is_initialized() or dist.get_world_size() == 1
+            or pipeline.deciding_alone()):
         return plan()
     box: List[Any] = [None]
     if dist.get_rank() == 0:
-        strategies, extra = plan()
+        strategies, extra = pipeline.decide_alone(plan)
         box = [([_export_strategy(gs) for gs in strategies], extra)]
     dist.broadcast_object_list(box, src=0)
     if dist.get_rank() == 0:

@@ -28,6 +28,7 @@ ranks that cut alone could disagree.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -256,15 +257,37 @@ def micro_abstract_batch(batch, num_micro_batches: int, batch_dim: int = 0,
     return tuple(tree_map(micro, b) for b in batch)
 
 
+_deciding = threading.local()
+
+
+def deciding_alone() -> bool:
+    """Whether this thread runs a decision that rank 0 makes alone (inside
+    :func:`on_rank0`): a decision nested in it (the stage cut of each
+    proposal an explore prices) is rank 0's too, and sends nothing."""
+    return getattr(_deciding, "on", False)
+
+
+def decide_alone(fn: Callable[[], Any]) -> Any:
+    """``fn()`` as a decision this rank makes alone: what it nests sends
+    nothing (:func:`deciding_alone`)."""
+    _deciding.on = True
+    try:
+        return fn()
+    finally:
+        _deciding.on = False
+
+
 def on_rank0(fn: Callable[[], Any]) -> Any:
     """``fn()`` on rank 0 of an initialized process group, its result sent
     to every rank (a search with a time limit decides once); without a
-    group, or on one rank, ``fn()`` itself."""
+    group, on one rank, or nested in another ``on_rank0`` call,
+    ``fn()`` itself."""
     import torch.distributed as dist
 
-    if not dist.is_initialized() or dist.get_world_size() == 1:
+    if (not dist.is_initialized() or dist.get_world_size() == 1
+            or deciding_alone()):
         return fn()
-    box = [fn() if dist.get_rank() == 0 else None]
+    box = [decide_alone(fn) if dist.get_rank() == 0 else None]
     dist.broadcast_object_list(box, src=0)
     return box[0]
 

@@ -46,8 +46,12 @@ def register_servicer(address: str, servicer) -> None:
 
 
 def unregister_servicer(address: str) -> None:
+    """Drop the servicer at ``address``; a group-form servicer's rank
+    processes end with it (``TepdistServicer.close``)."""
     with _LOCK:
-        _SERVICERS.pop(address, None)
+        servicer = _SERVICERS.pop(address, None)
+    if getattr(servicer, "rank_group", None) is not None:
+        servicer.close()
 
 
 def resolve(address: str):

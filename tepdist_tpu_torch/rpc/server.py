@@ -230,14 +230,29 @@ class _LossGraphs:
 
 
 class TepdistServicer:
-    """All RPC method implementations (bytes in -> bytes out)."""
+    """All RPC method implementations (bytes in -> bytes out).
+
+    Over several devices that can each hold a rank (distinct cards, CPU
+    devices) the servicer takes the group form (``rpc/rank_group.py``):
+    one rank process a device, each a one-device servicer of a world of
+    ``len(devices)`` ranks, and every verb forwarded to all of them. Over
+    one device, or a repeated card, it runs in this process; a world of
+    several ranks is then the caller's (a multi-rank server)."""
 
     def __init__(self, devices=None, task_index: int = 0):
+        from tepdist_tpu_torch.rpc import rank_group
+
         self.devices = [_indexed(resolve_device(d))
                         for d in (devices if devices is not None
                                   else ["cuda"])]
         self.device = self.devices[0]
         self.task_index = task_index
+        self.rank_group = (rank_group.RankGroup(self.devices, task_index)
+                           if rank_group.takes_group_form(self.devices)
+                           else None)
+        # A rank of a group-form servicer other than rank 0 gathers state
+        # with the others on a save and writes nothing.
+        self.ckpt_writer = True
         self.plan_cache = ExecutionPlanCache()
         # global_idx -> tensor (server-held variables; DTensors once a
         # step has run; reference WholeGraphLaunchContext +
@@ -457,35 +472,37 @@ class TepdistServicer:
         # the step SERVER-side, which needs the optimizer's update rule.
         include = optimizer is not None and (micro_ok or M == 1)
         # SPMD and seq meshes span the world's ranks. Pipeline stages are
-        # cut from a one-rank server's device list and run in one process,
-        # which holds no TP group; a multi-rank server proposes none (no
-        # client explores one, and nothing holds its group-form build to
-        # the reference).
+        # cut from the world's ranks where the server has several (its
+        # group form, or a multi-rank server), and a stage may then be
+        # TP over its group's ranks; a one-rank server cuts them from its
+        # device list and runs them in one process, which holds no TP
+        # group.
         world = self._world()
-        with_pipeline = include and world == 1
-        if with_pipeline:
+        n_pipe = world if world > 1 else len(self.devices)
+        if include:
             # A stage over R intra-stage replicas is captured at a
             # replica's share of the micro rows: every share the explore
-            # may propose (R <= devices / 2, R dividing the rows) must
-            # have been shipped.
+            # may propose (R = a group's devices over its TP degree, so R
+            # divides the devices and is at most half of them; R dividing
+            # the rows) must have been shipped.
             rows = tree_leaves(batch)[0].shape[0] // M
             missing = [
-                r for r in range(2, len(self.devices) // 2 + 1)
-                if rows % r == 0 and not loss.has_batch(
+                r for r in range(2, n_pipe // 2 + 1)
+                if n_pipe % r == 0 and rows % r == 0 and not loss.has_batch(
                     micro_abstract_batch(tuple(batch), M, replicas=r))]
             if missing:
                 raise ValueError(
                     f"the client shipped no loss trace at a replica's "
                     f"share of the {rows} micro rows for R in {missing} "
-                    f"(a server on {len(self.devices)} devices may place "
-                    "a stage over any of them)")
+                    f"(a server on {n_pipe} devices may place a stage "
+                    "over any of them)")
 
         def search():
             best = explore(
                 loss, params, *batch, n_devices=world,
-                pipeline_devices=len(self.devices), num_micro_batches=M,
-                include_pipeline=with_pipeline, include_seq=include,
-                pipeline_micro_options=[M], pipeline_stage_tp=False,
+                pipeline_devices=n_pipe, num_micro_batches=M,
+                include_pipeline=include, include_seq=include,
+                pipeline_micro_options=[M], pipeline_stage_tp=world > 1,
                 entry_point="BuildExecutionPlan")
             return ({k: v for k, v in best.items()
                      if k not in ("candidates", "strategies", "cost")},
@@ -502,12 +519,16 @@ class TepdistServicer:
             # The full decision record rides the explore RPC (plain JSON
             # header payload); the client embeds it in dump_trace().
             explored["report"] = best["report"]
+        explored["pipeline_form"] = (
+            f"{world} ranks, one a device: stage cuts with intra-stage TP"
+            if world > 1 else
+            f"one process over {n_pipe} device(s): stage cuts without "
+            "intra-stage TP (one process holds no TP group)")
         if best.get("excluded_kinds"):
             explored["excluded_kinds"] = best["excluded_kinds"]
             explored["excluded_reason"] = (
                 "no optimizer_spec from client" if optimizer is None
-                else "no micro-shape loss trace" if not include
-                else "no pipeline on a multi-rank server")
+                else "no micro-shape loss trace")
         return best, loss, params, batch, optimizer, explored
 
     def _recompose_step(self, loss, optimizer, num_micro_batches,
@@ -556,11 +577,11 @@ class TepdistServicer:
     def _build_pipeline_plan(self, opts, best, loss, params, batch,
                              optimizer, explored, t0) -> bytes:
         """Materialize a pipeline explore winner as the plan behind the
-        handle: plan the stage cut, build the task-graph runtime over this
-        server's devices (the one-process form), and register a
-        pipeline-kind plan (reference: the PIPELINE DeviceSplitPlan
-        compiled into per-stage def-modules + task graph,
-        service_rt.cc:218-308)."""
+        handle: plan the stage cut, build the task-graph runtime (over the
+        world's ranks in the group form, one device a rank; else over this
+        server's devices in one process), and register a pipeline-kind
+        plan (reference: the PIPELINE DeviceSplitPlan compiled into
+        per-stage def-modules + task graph, service_rt.cc:218-308)."""
         from tepdist_tpu_torch.parallel.pipeline import plan_pipeline
         from tepdist_tpu_torch.runtime.executor import (PipelineExecutable,
                                                         stage_replicas)
@@ -579,10 +600,11 @@ class TepdistServicer:
                 f"server-composed state has {n_state} leaves but the "
                 f"client registered {n_state_client}: the optimizer_spec "
                 "does not match the client's optimizer")
+        world = self._world()
+        devices = [self.device] * world if world > 1 else self.devices
         prog = plan_pipeline(loss, S, M, params, *batch,
                              replicas=stage_replicas(
-                                 len(self.devices), S, tp, placement,
-                                 il_groups))
+                                 len(devices), S, tp, placement, il_groups))
         prog.comm_dtype = best.get("comm_dtype", "")
         prog.zero = bool(best.get("zero", False))
         summary = {
@@ -596,7 +618,7 @@ class TepdistServicer:
             "interleave_groups": il_groups,
             "explored": explored,
         }
-        exe = PipelineExecutable(prog, devices=self.devices,
+        exe = PipelineExecutable(prog, devices=devices,
                                  optimizer=optimizer, intra_stage_tp=tp,
                                  placement=placement,
                                  interleave_groups=il_groups)
@@ -1006,6 +1028,13 @@ class TepdistServicer:
         from tepdist_tpu_torch.runtime.checkpoint import CheckpointUtil
 
         self._sync_active_pipeline()
+        if not self.ckpt_writer:
+            # A group-form rank other than rank 0: gather each DTensor
+            # leaf with the writer, in its order, and write nothing.
+            with self._lock:
+                for v in list(self.variables.values()):
+                    _whole(v)
+            return
         with self._lock:
             # DTensor leaves are gathered by the writer, one at a time.
             data = {str(k): v for k, v in self.variables.items()}
@@ -1674,13 +1703,34 @@ class TepdistServicer:
             eng.stop(drain=True)
         self.servables.clear()
 
+    def close(self) -> None:
+        """Stop the serving engines; in the group form, each rank stops
+        its own and its process ends (``inproc.unregister_servicer`` calls
+        this for a group-form servicer)."""
+        if self.rank_group is not None:
+            self.rank_group.close()
+        self.close_servables()
+
+
+# Verbs whose reply names the server's device count: the group form's
+# head answers with its own (a rank holds one device).
+_DEVICE_COUNT_VERBS = frozenset({"Ping", "InitMeshTopology"})
+
 
 def _on_device(verb):
     """A verb run with the server's card as the calling thread's current
     device: handlers run on transport threads (gRPC's pool, a caller's
     thread in process), whose current card is card 0, and NCCL binds a
-    rank's collectives to its own card."""
+    rank's collectives to its own card. A group-form servicer forwards
+    the verb to its ranks instead."""
     def handler(self, request: bytes, context=None):
+        if self.rank_group is not None:
+            resp = self.rank_group.forward(verb.__name__, request)
+            if verb.__name__ in _DEVICE_COUNT_VERBS:
+                header, blobs = protocol.unpack(resp)
+                header["n_devices"] = len(self.devices)
+                resp = protocol.pack(header, blobs)
+            return resp
         if self.device.type != "cuda":
             return verb(self, request, context)
         with torch.cuda.device(self.device):

@@ -49,13 +49,15 @@ loop). In the port:
     rows ``[r * c, (r + 1) * c)``; APPLY is reduce-scatter -> the update on
     the shard -> all-gather.
   * Stage x TP (group form only; one process cannot hold the ranks of a
-    TP group): each stage's forward graph is planned over ``model`` by
-    ``CostSpmdStrategy`` with dim 0 forbidden on every tensor of the
-    replica's rows, and runs as a DTensor program (``spmd_transform``'s
-    interpreter) on the ``model`` dimension of one ``DeviceMesh``
-    ("stage", "intra", "model"). Values cross stages as local shards with
-    the producer's placements and are redistributed on the consumer's
-    sub-mesh.
+    TP group, so a servicer proposes TP only where it runs one rank a
+    device: its group form over distinct cards or CPU devices, or a
+    multi-rank server): each stage's forward graph is planned over
+    ``model`` by ``CostSpmdStrategy`` with dim 0 forbidden on every
+    tensor of the replica's rows, and runs as a DTensor program
+    (``spmd_transform``'s interpreter) on the ``model`` dimension of one
+    ``DeviceMesh`` ("stage", "intra", "model"). Values cross stages as
+    local shards with the producer's placements and are redistributed on
+    the consumer's sub-mesh.
   * Each payload is a plain Python callable over tensors: a stage's forward
     is its ``fx.GraphModule`` under ``torch.no_grad()``; its backward runs
     that module again under autograd (``parallel/pipeline.stage_vjp``).

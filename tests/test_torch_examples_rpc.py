@@ -16,7 +16,8 @@ example's server is started with one CPU device too
 (``XLA_FLAGS=--xla_force_host_platform_device_count=1``, which the JAX
 example keeps when set) and the winners' kinds are compared on one
 device in both regimes; then an in-process servicer on ``["cpu"] * 8``
-is held to the JAX server on 8 virtual devices.
+and on ``["cpu"] * 4`` (one gloo rank a device) is held to the JAX
+server on 8 and on 4 virtual devices.
 """
 
 import contextlib
@@ -209,22 +210,12 @@ def test_auto_explore(regime, monkeypatch):
     assert any(c["winner"] for c in out["candidates"])
 
 
-@pytest.mark.parametrize("regime", ["auto", "pipeline"])
-def test_auto_explore_on_eight_devices(regime, monkeypatch):
-    """ROADMAP C13: a servicer on ``["cpu"] * 8`` (one rank, eight devices
-    in one process) builds and trains the candidate its explore picks.
-
-    The filter: a one-rank servicer builds an SPMD or seq mesh over one
-    rank, and a pipeline over its eight devices in one process, which
-    cannot hold the ranks of a TP group, so the winner it must pick is the
-    argmin (memory-feasible first, then seconds) of the JAX server's SPMD
-    and seq rows on one device and its pipeline rows on eight without
-    intra-stage TP. In the pipeline regime that departs from the JAX
-    winner on eight devices (``S=2 M=4 tp=2@int8``): the port picks the
-    best JAX row without ``tp=``, ``S=4 M=4@int8``; in the auto regime
-    the JAX argmin on eight is ``data=8``, which one rank cannot run.
-    Losses within ``LOSS_ATOL`` of the JAX run on eight devices (every
-    candidate computes the same fp32 step)."""
+def _explore_on(n_devices, regime, monkeypatch):
+    """The port's ``auto_explore`` through a servicer over ``["cpu"] *
+    n_devices`` (the group form: one gloo rank a device) against the JAX
+    example's server on ``n_devices`` virtual devices: the same winner,
+    losses within ``LOSS_ATOL``; no rank outlives the servicer, and the
+    caller's process gains no process group."""
     import torch.distributed as dist
 
     from examples_torch.auto_explore import main as auto_explore
@@ -232,23 +223,14 @@ def test_auto_explore_on_eight_devices(regime, monkeypatch):
     from tepdist_tpu_torch.rpc import inproc
     from tepdist_tpu_torch.rpc.server import TepdistServicer
 
-    j8 = _jax_explore(regime, 8, monkeypatch)
-    j1 = _jax_explore(regime, 1, monkeypatch)
-    # The JAX example prints its best rows in rank order, so the best
-    # pipeline without TP is among them if any is.
-    pipe = [r for r in _table(j8) if r[0] == "pipeline"
-            and " tp=" not in r[1]]
-    assert pipe, j8
-    rows = [r for r in _table(j1) if r[0] != "pipeline"] + pipe
-    want = min(rows, key=lambda r: (not r[3], r[2]))
-    if regime == "pipeline":
-        assert next(r for r in _table(j8) if r[4])[:2] == (
-            "pipeline", "S=2 M=4 tp=2@int8")
-        assert want[:2] == ("pipeline", "S=4 M=4@int8")
+    jt = _jax_explore(regime, n_devices, monkeypatch)
+    want = next(r for r in _table(jt) if r[4])
     had_world = dist.is_initialized()
     ServiceEnv.reset(auto_explore.REGIME_ENV[regime])
-    address = f"inproc:c13-{regime}"
-    inproc.register_servicer(address, TepdistServicer(["cpu"] * 8))
+    address = f"inproc:c15-{regime}-{n_devices}"
+    servicer = TepdistServicer(["cpu"] * n_devices)
+    assert servicer.rank_group.size == n_devices
+    inproc.register_servicer(address, servicer)
     try:
         params, batch = _explore_arrays()
         pt, out = _run_port(auto_explore, ["--steps", "2", "--regime",
@@ -257,13 +239,40 @@ def test_auto_explore_on_eight_devices(regime, monkeypatch):
     finally:
         inproc.unregister_servicer(address)
         ServiceEnv.reset()
-        if dist.is_initialized() and not had_world:
-            dist.destroy_process_group()
+    assert not any(servicer.rank_group.alive())
+    assert dist.is_initialized() == had_world
     won = next(c for c in out["candidates"] if c["winner"])
-    assert (won["kind"], won["config"]) == want[:2], (want, pt)
+    assert (won["kind"], won["config"]) == want[:2], (jt, pt)
     assert out["kind"] == want[0]
-    np.testing.assert_allclose(out["losses"], _losses(j8), rtol=0,
+    np.testing.assert_allclose(out["losses"], _losses(jt), rtol=0,
                                atol=LOSS_ATOL)
+    return want
+
+
+@pytest.mark.parametrize("regime", ["auto", "pipeline"])
+def test_auto_explore_on_eight_devices(regime, monkeypatch):
+    """ROADMAP C13 and C15: a servicer on ``["cpu"] * 8`` forms 8 gloo
+    ranks, one a device, explores over them as the JAX server explores
+    its 8 virtual devices (pipeline cuts with intra-stage TP included),
+    and builds and trains the winner: the JAX winner in both regimes
+    (``S=2 M=4 tp=2@int8`` in the pipeline regime, a stage of 2 TP ranks
+    x 2 replicas; ``data=8`` in the auto regime), losses within
+    ``LOSS_ATOL`` of the JAX run (every candidate computes the same fp32
+    step)."""
+    want = _explore_on(8, regime, monkeypatch)
+    assert want[:2] == {"pipeline": ("pipeline", "S=2 M=4 tp=2@int8"),
+                        "auto": ("spmd", "MeshTopology(data=8)")}[regime]
+
+
+@pytest.mark.parametrize("regime", ["auto", "pipeline"])
+def test_auto_explore_on_four_devices(regime, monkeypatch):
+    """ROADMAP C15: the same over ``["cpu"] * 4`` (4 gloo ranks) against
+    the JAX server on 4 virtual devices; in the pipeline regime the JAX
+    winner is ``S=8 M=4 il/G=4`` (8 stages interleaved over 4 groups of
+    one rank)."""
+    want = _explore_on(4, regime, monkeypatch)
+    if regime == "pipeline":
+        assert want[:2] == ("pipeline", "S=8 M=4 il/G=4")
 
 
 @pytest.fixture

@@ -75,11 +75,24 @@ def server():
     proc.wait()
 
 
+_REGISTERED = []
+
+
+@pytest.fixture(autouse=True)
+def _unregister_servicers():
+    """Each test's in-process servicers leave with it (a servicer over
+    ``["cpu"] * 4`` holds 4 rank processes)."""
+    yield
+    while _REGISTERED:
+        inproc.unregister_servicer(_REGISTERED.pop())
+
+
 def _servicer(devices=("cpu",)):
     """A port servicer on ``devices`` behind a fresh ``inproc:`` address."""
     address = f"inproc:{next(_PORTS)}"
     servicer = TepdistServicer(list(devices))
     inproc.register_servicer(address, servicer)
+    _REGISTERED.append(address)
     return address, servicer
 
 

@@ -5,6 +5,7 @@ its process-group form, one process a card.
     python3 tools/torch_pipeline_dist.py [--ranks 4] [--layers 48]
                                          [--tp-layers 8] [--steps 4]
                                          [--cases dp,dp_zero,s4]
+    python3 tools/torch_pipeline_dist.py --cases servicer
 
 Every rank (NCCL over ``tcp://127.0.0.1``, a free port) builds the same
 GPT-2 1.5B (full width, ``--layers`` deep; ``chip_smoke.py``'s recipe:
@@ -21,6 +22,29 @@ batch 48 x 1024, M = 8) and trains ``--steps`` steps through
   sub-mesh; its planner's ILP on a 24-layer stage would take the call's
   time). It failed across NCCL cards until the GPT-2 token lookup became
   ``F.embedding`` (ROADMAP C8, resolved).
+
+``servicer`` (named only, and run alone) drives the service instead of
+the executable: one ``TepdistServicer`` over ``cuda:0..3`` (its group
+form: one NCCL rank a card, ``rpc/rank_group.py``) behind an ``inproc:``
+address, and a ``TepdistSession`` in this process with no mesh axes, so
+the servicer explores over its 4 ranks (stage x TP included) and builds
+its winner. The recipe is ``chip_smoke.py``'s ``explore_tools`` phase
+(GPT-2 1.5B width, ``EXPLORE_LAYERS`` deep, batch ``EXPLORE_BATCH`` x
+1024, M = ``EXPLORE_MICRO``, ``adamw_bf16(1e-4)``, ``EXPLORE_STEPS``
+steps). The same session first drives a servicer over ``[cuda:0] * 4``
+(one process: no TP) in this process, the phase's own form, as the
+reference. It prints the winner and its predicted ms beside the
+runner-up's, the planner and ``compile_training`` seconds, the step
+seconds beside the reference's, the losses held at
+``SERVICER_LOSS_RTOL`` to the reference's, each rank's peak memory and
+its launches of the three kernels (by shape), the milliseconds of one
+more step's spans by category on each rank (and in the reference's
+process), then each kernel at the
+shape the stage ran against its plain version (``chip_smoke.py``'s
+``_within``/``TOLERANCE``), with its time, bound, plain and library
+times. It fails unless the losses agree and fall, each kernel was
+launched (a stage without attention, the LM head's, launches none) and
+the ranks of each stage group launched alike, and every kernel agrees.
 
 A rank that raises prints its traceback and leaves at once: over NCCL its
 peers would wait for it, and so would ``destroy_process_group``, which
@@ -78,6 +102,12 @@ def _emit(obj) -> None:
 # ``LOSS_RTOL``): across ranks the ``model`` axis sums each split matmul
 # in another order, which bf16 would round far past it.
 TP_LOSS_RTOL = 1e-5
+# The ``servicer`` case runs the explore_tools recipe in bf16 and is held
+# to the one-process run of the same recipe: a TP stage adds rounding
+# points (each split matmul's partial sums are reduced in bf16) on top of
+# the pipeline phases' GA order (PIPELINE_LOSS_RTOL, 2e-3), so allow five
+# times that.
+SERVICER_LOSS_RTOL = 1e-2
 
 
 def _config(args, layers, dtype=None):
@@ -293,6 +323,209 @@ def _reference(args, key):
     return {"losses": losses, "step_seconds": seconds}
 
 
+def _servicer_recipe(args):
+    """(config, CPU params, CPU tokens, micro batches, steps, optimizer,
+    spec) of the explore_tools recipe (``--tiny``: GPT-2 ``test`` with
+    flash and full remat, batch 8 x 32)."""
+    import torch
+
+    import chip_smoke as cs
+    from tepdist_tpu_torch.core.tree import tree_map
+    from tepdist_tpu_torch.models import gpt2
+    from tepdist_tpu_torch.optim import adamw_bf16, optimizer_spec
+
+    if args.tiny:
+        cfg = dataclasses.replace(gpt2.CONFIGS["test"], attn="flash",
+                                  remat=True)
+        rows, seq = 8, 32
+    else:
+        cfg = cs._config(cs.EXPLORE_LAYERS)
+        rows, seq = cs.EXPLORE_BATCH, cs.SEQ
+    device = "cuda" if args.device == "cuda" else "cpu"
+    params = tree_map(lambda v: v.cpu(), gpt2.init_params(
+        cfg, seed=0, device=device))
+    tokens = gpt2.fake_batch(cfg, rows, seq, seed=0, device=device).cpu()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return (cfg, params, tokens, cs.EXPLORE_MICRO, cs.EXPLORE_STEPS,
+            adamw_bf16(1e-4), optimizer_spec("adamw_bf16",
+                                             learning_rate=1e-4))
+
+
+def _drive_servicer(servicer, address, recipe):
+    """Compile and step the recipe through ``servicer``, then one traced
+    step: (summary, compile seconds, losses, step seconds, per-rank stats
+    or None, the traced step's seconds and spans by rank)."""
+    from tepdist_tpu_torch.client.session import TepdistSession
+    from tepdist_tpu_torch.models import gpt2
+    from tepdist_tpu_torch.rpc import inproc, rank_group
+
+    cfg, params, tokens, micro, steps, opt, spec = recipe
+    group = servicer.rank_group
+    inproc.register_servicer(address, servicer)
+    try:
+        sess = TepdistSession(address)
+        t0 = time.perf_counter()
+        summary = sess.compile_training(
+            lambda p, t: gpt2.loss_fn(p, t, cfg), opt, params, tokens,
+            num_micro_batches=micro, optimizer_spec=spec)
+        compile_s = time.perf_counter() - t0
+        stats = None
+        if group is not None:
+            stats = {"after_compile": group.call_each(rank_group.rank_stats)}
+            group.call_each(rank_group.reset_rank_stats)
+        losses, seconds = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(sess.run(tokens))
+            seconds.append(time.perf_counter() - t0)
+        if group is not None:
+            stats["steps"] = group.call_each(rank_group.rank_stats)
+            group.call_each(rank_group.reset_rank_stats, True)
+        else:
+            rank_group.reset_rank_stats(True)
+        # One more step, traced: where each rank's step time goes.
+        t0 = time.perf_counter()
+        sess.run(tokens)
+        traced = {"seconds": time.perf_counter() - t0}
+        if group is not None:
+            traced["spans"] = [st["spans"] for st in
+                               group.call_each(rank_group.rank_stats)]
+            group.call_each(rank_group.reset_rank_stats)
+        else:
+            traced["spans"] = [rank_group.rank_stats()["spans"]]
+            rank_group.reset_rank_stats()
+        sess.close()
+    finally:
+        inproc.unregister_servicer(address)
+    return summary, compile_s, losses, seconds, stats, traced
+
+
+def _winner_rows(summary):
+    """The winner's and the runner-up's candidate rows (predicted ms)."""
+    rows = summary.get("explored", {}).get("candidates", [])
+    won = next((r for r in rows if r["winner"]), None)
+    runner = next((r for r in rows if not r["winner"]), None)
+    return [None if r is None else
+            {"kind": r["kind"], "config": r["config"],
+             "predicted_ms": r["duration_s"] * 1e3,
+             "memory_feasible": r["memory_feasible"]}
+            for r in (won, runner)]
+
+
+def _servicer_case(args) -> int:
+    """The ``servicer`` case (module docstring): 0 when every check
+    holds."""
+    import gc
+    import re
+
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke as cs
+    from tepdist_tpu_torch.core.service_env import ServiceEnv
+    from tepdist_tpu_torch.rpc.server import TepdistServicer
+
+    cuda = args.device == "cuda"
+    recipe = _servicer_recipe(args)
+    cfg = recipe[0]
+    ServiceEnv.reset()
+    # The reference: the one-process servicer of explore_tools.
+    ref_devices = ([torch.device("cuda", 0)] * args.ranks if cuda
+                   else ["cpu"])
+    had_world = dist.is_initialized()
+    ref = _drive_servicer(TepdistServicer(ref_devices),
+                          "inproc:pd-servicer-ref", recipe)
+    # A one-rank SPMD winner leaves its world in this process.
+    if dist.is_initialized() and not had_world:
+        dist.destroy_process_group()
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    devices = ([torch.device("cuda", r) for r in range(args.ranks)] if cuda
+               else ["cpu"] * args.ranks)
+    t0 = time.perf_counter()
+    servicer = TepdistServicer(devices)
+    summary, compile_s, losses, seconds, stats, traced = _drive_servicer(
+        servicer, "inproc:pd-servicer", recipe)
+    drive_s = time.perf_counter() - t0
+    alive = servicer.rank_group.alive()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref[2])]
+    per_rank = [{"rank": r, "launches": st["launches"],
+                 "shape_launches": st["shape_launches"],
+                 "peak_bytes_steps": st["peak_bytes"],
+                 "peak_bytes_compile": stats["after_compile"][r][
+                     "peak_bytes"]}
+                for r, st in enumerate(stats["steps"])]
+    won, runner = _winner_rows(summary)
+    ref_won, _ = _winner_rows(ref[0])
+    line = {"tool": "torch_pipeline_dist", "case": "servicer",
+            "device": args.device, "ranks": args.ranks,
+            "n_layer": cfg.n_layer, "n_embd": cfg.n_embd,
+            "dtype": str(cfg.dtype), "micro_batches": recipe[3],
+            "batch": list(recipe[2].shape),
+            "winner": won, "runner_up": runner,
+            "summary": {k: summary.get(k) for k in (
+                "kind", "axes", "num_stages", "num_micro_batches",
+                "intra_tp", "placement", "interleave_groups")},
+            "pipeline_form": summary.get("explored", {}).get(
+                "pipeline_form"),
+            "planner_seconds": summary.get("planner_seconds"),
+            "compile_training_seconds": compile_s,
+            "servicer_seconds": drive_s,
+            "losses": losses, "step_seconds": seconds,
+            "reference": {"devices": f"{ref_devices[0]} x "
+                                     f"{len(ref_devices)} (one process)",
+                          "winner": ref_won,
+                          "planner_seconds": ref[0].get("planner_seconds"),
+                          "compile_training_seconds": ref[1],
+                          "losses": ref[2], "step_seconds": ref[3],
+                          "traced_step": ref[5]},
+            "traced_step": traced,
+            "loss_rtol": SERVICER_LOSS_RTOL,
+            "max_loss_rel_diff": max(rel),
+            "per_rank": per_rank,
+            "ranks_alive_after_close": alive}
+    _emit(line)
+    failed = []
+    if not (all(math.isfinite(x) for x in losses)
+            and max(rel) <= SERVICER_LOSS_RTOL and losses[-1] < losses[0]):
+        failed.append(f"losses {losses} against {ref[2]}")
+    if any(alive):
+        failed.append(f"ranks alive after close: {alive}")
+    if cuda:
+        # A stage without attention (the LM head's) launches none; the
+        # ranks of one stage group run one program and launch alike.
+        counts = [st["launches"] for st in per_rank]
+        per = args.ranks // (summary.get("num_stages") or 1)
+        groups = [counts[g:g + per] for g in range(0, args.ranks, per)]
+        if not (all(any(c.get(n) for c in counts) for n in cs.KERNELS)
+                and all(c == grp[0] for grp in groups for c in grp)):
+            failed.append(f"launches by rank {counts}: a kernel never "
+                          "launched, or one stage group's ranks differ")
+        # Each kernel at the shape rank 0's stage ran it most, against its
+        # plain version.
+        seen = per_rank[0]["shape_launches"]
+        BH, T, D = (int(x) for x in re.findall(r"\d+", max(
+            (k for k in seen if k.startswith("flash_fwd/")), key=seen.get)))
+        H = cfg.n_head
+        res = cs._case(B=BH // H, H=H, T=T, D=D, dtype=cfg.dtype,
+                       causal=True, seed=700, time_it=True)
+        _emit({"tool": "torch_pipeline_dist", "case": "servicer_kernels",
+               "shape": {"B": BH // H, "H": H, "T": T, "D": D,
+                         "dtype": str(cfg.dtype).replace("torch.", ""),
+                         "causal": True},
+               "tolerance": cs.TOLERANCE, "results": res})
+        bad = [n for n, r in res.items() if not r["ok"]]
+        if bad:
+            failed.append(f"{bad} disagree with their plain versions")
+    if failed:
+        print("torch_pipeline_dist servicer: " + "; ".join(failed),
+              file=sys.stderr)
+        return 1
+    return 0
+
+
 def main() -> int:
     import torch
     import torch.multiprocessing as mp
@@ -303,7 +536,8 @@ def main() -> int:
     p.add_argument("--tp-layers", type=int, default=8)
     p.add_argument("--steps", type=int, default=4)
     p.add_argument("--cases", default="dp,dp_zero,s4",
-                   help="a comma-separated subset of dp,dp_zero,s4,tp")
+                   help="a comma-separated subset of dp,dp_zero,s4,tp; or "
+                        "servicer, alone")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--tiny", action="store_true",
                    help="a 64-wide 4-layer model (a CPU rehearsal)")
@@ -320,6 +554,8 @@ def main() -> int:
         print(cs.nvidia_smi(), flush=True)
         _build.build(cs.KERNELS)
         torch.backends.cuda.matmul.allow_tf32 = False
+    if args.cases == "servicer":
+        return _servicer_case(args)
     refs = {k: _reference(args, k) for k in {c[1] for c in _cases(args)}}
     mp.start_processes(_worker, args=(args.ranks, _free_port(), args, refs),
                        nprocs=args.ranks, start_method="spawn")
