@@ -15,9 +15,10 @@ calls (``plan_training`` + ``plan.step``, ``plan.save``/``restore``,
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the GPT-2 path's shape [4*25, 1024, 64], at the Llama path's
    [4*16, 512, 128], at the remat phase's [8*25, 1024, 64] and at ragged
-   fp32 and bf16 shapes, with times beside
+   fp32 and bf16 shapes (every bf16 head dim), with times beside
    the roofline bound and PyTorch's own flash-attention forward and
-   backward calls (a yardstick only: the port never calls them);
+   backward calls (a yardstick only: the port never calls them); dQ and
+   dK/dV run twice on the same inputs and must give the same bits;
 4. parity: a 2-layer model at full 1.5B width, loss and grads through the
    kernels against the plain versions;
 5. slice: GPT-2 1.5B at full width and depth for 6 steps, with per-step
@@ -370,19 +371,23 @@ def phase_build():
 
 
 def _ptxas_report(log: str) -> dict:
-    """{"<dtype>/D<d>": {"spill_store_bytes": n, "registers": n}} for each
-    kernel instantiation in an ``nvcc -Xptxas -v`` log. The tensor-core
-    kernels (``*_mma_kernel<D>``) take bf16 only, so they carry no type
-    argument."""
+    """{"<dtype>/D<d>": {"kernel": name, "spill_store_bytes": n,
+    "registers": n}} for each kernel instantiation in an ``nvcc -Xptxas
+    -v`` log. The bf16 kernels (``flash_fwd_mma_kernel<D>``,
+    ``flash_dq_sm90_kernel<D>``, ``flash_dkv_sm90_kernel<D>``) take bf16
+    only, so they carry no type argument. The Hopper kernels' registers
+    are those a thread has at launch (168: whole warpgroups), before
+    setmaxnreg gives the consumers 240."""
     out, key = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\w*kernelI"
-                      r"(f|13__nv_bfloat16)?Li(\d+)E", line)
+        m = re.search(r"Compiling entry function '_ZN\d+tepdist\d+"
+                      r"(\w+?_kernel)I(f|13__nv_bfloat16)?Li(\d+)E", line)
         if m:
-            key = f"{'fp32' if m.group(1) == 'f' else 'bf16'}/D{m.group(2)}"
+            key = f"{'fp32' if m.group(2) == 'f' else 'bf16'}/D{m.group(3)}"
+            out[key] = {"kernel": m.group(1)}
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and key:
-            out[key] = {"spill_store_bytes": int(m.group(1))}
+            out[key]["spill_store_bytes"] = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m and key in out:
             out[key]["registers"] = int(m.group(1))
@@ -439,7 +444,16 @@ def _case(B, H, T, D, dtype, causal, seed, time_it, q_mul=1):
     dk, dv = fa.flash_dkv(*bwd_args)
     dk_ref, dv_ref = fa.flash_dkv_plain(*bwd_args)
     dk_32, dv_32 = fa.flash_dkv_plain(*bwd_32)
+    # Each output element is summed by one CTA in a fixed order, so a
+    # second call on the same inputs gives the same bits (the bit-exact
+    # checks of resume and of stage x TP against one card rest on it).
+    dq_again = fa.flash_dq(*bwd_args)
+    dk_again, dv_again = fa.flash_dkv(*bwd_args)
     torch.cuda.synchronize()
+    same = {"flash_fwd": None,
+            "flash_dq": torch.equal(dq, dq_again),
+            "flash_dkv": torch.equal(dk, dk_again) and torch.equal(
+                dv, dv_again)}
 
     checks = {"flash_fwd": [(o, o_ref, o_32), (lse, lse_ref, lse_32)],
               "flash_dq": [(dq, dq_ref, dq_32)],
@@ -450,7 +464,10 @@ def _case(B, H, T, D, dtype, causal, seed, time_it, q_mul=1):
         errs = [_within(*p) for p in pairs]
         rec = {"max_abs_err": max(e[0] for e in errs),
                "max_rel_err": max(e[1] for e in errs),
-               "tolerance": TOLERANCE, "ok": all(e[2] for e in errs)}
+               "tolerance": TOLERANCE,
+               "ok": all(e[2] for e in errs) and same[name] is not False}
+        if same[name] is not None:
+            rec["deterministic"] = same[name]
         rec["bound_ms"], rec["bound_by"] = bound(name, BH, T, D, dt, causal)
         out[name] = rec
     if time_it:
@@ -529,6 +546,12 @@ def phase_kernels():
         # The remat phase: GPT-2 heads, the whole batch in one micro batch.
         ("remat_path", dict(B=REMAT_BATCH, H=25, T=SEQ, D=64,
                             dtype=torch.bfloat16, causal=True), True),
+        # The narrow bf16 head dims, held by the Hopper backward as 64
+        # columns with the rest zero-filled by TMA.
+        ("ragged_bf16_d16", dict(B=2, H=4, T=100, D=16,
+                                 dtype=torch.bfloat16, causal=True), False),
+        ("ragged_bf16_d32", dict(B=2, H=4, T=257, D=32,
+                                 dtype=torch.bfloat16, causal=False), False),
     ]
     results = {label: _checked_case(label, shape, 100 + i, time_it)
                for i, (label, shape, time_it) in enumerate(cases)}

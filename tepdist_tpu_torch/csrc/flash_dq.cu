@@ -6,23 +6,33 @@
 // renormalisation pass is needed. delta = rowsum(dO * O) - dLSE comes in
 // precomputed (a torch reduction in the wrapper, as XLA fused it outside the
 // Pallas kernel). Keys past the diagonal or past T get P = 0, so any T works
-// without padding, and a causal CTA stops at its diagonal tile.
+// without padding, and a causal CTA stops at its diagonal tile. Each output
+// element is summed by one CTA in a fixed order (no atomics), so two runs
+// on the same inputs give the same bits.
 //
 // Bound on H100 (main path [4*25, 1024, 64] bf16, causal): 3 dots of
 // 2*BH*T^2*D FLOPs, halved under causal (0.020 ms at the bf16 tensor-core
 // peak), against 5 slabs and 2 row vectors moved once (0.020 ms):
-// operations and bytes bound it about equally.
+// operations and bytes bound it about equally. The bf16 kernel runs 4
+// product passes where the bound counts 3 (dS enters dS K as a hi/lo
+// pair): its tensor-core floor is 0.027 ms (0.326 ms at the plan shape
+// [48*25, 1024, 64]), beside about 8 CUDA-core instructions an element of
+// P for the exp, the masks and the split.
 //
-// bf16 (flash_dq_mma_kernel): the dots run on the tensor cores. One CTA of
-// 4 warps per (b*h, 64-row Q tile); its Q and dO stay in shared memory as
-// bf16, each warp owning 16 rows and their dQ in fp32 registers. K and V
-// stream in 64-row tiles, double-buffered by cp.async so the next tile's
-// copy overlaps this one's dots. A warp forms S = Q_w K^T and dP = dO_w V^T
-// with mma.sync, P and dS in registers, and dQ_w += dS K with dS re-packed
-// from the accumulators into the A operand (a hi/lo bf16 pair, see
-// flash_common.cuh) and K as B through ldmatrix .trans. scale multiplies
-// the fp32 S and, once, dQ in the epilogue (a bf16 Q * scale would round).
-// CTAs are numbered so that the longest (last, under causal) start first.
+// bf16 (flash_dq_sm90_kernel), Hopper: one CTA per (b*h, 128-query tile), two
+// consumer warpgroups of 64 queries each and a producer warpgroup
+// (flash_common.cuh, "Hopper path"). TMA loads Q and dO once, 128-byte
+// swizzled, and streams K and V in tiles of kDqKeys keys through a ring of
+// kStages stages. Per tile a warpgroup forms S = Q K^T and dP = dO V^T as
+// wgmmas with both operands in shared memory, P and dS in registers, and dQ +=
+// dS K as wgmmas with dS a register operand (hi and lo) and K read MN-major. A
+// tile wholly below the diagonal and inside T takes no mask arithmetic; a
+// warpgroup skips the products of a tile whose keys all follow its queries.
+// scale multiplies the fp32 S (inside ex2) and, once, dQ in the epilogue (a
+// bf16 Q * scale would round). CTAs are numbered so that the longest (last,
+// under causal) start first. As for dK/dV (flash_dkv.cu), a warpgroup's
+// dependent chain per tile, not the exp or the lo products, keeps it well above
+// its floor.
 //
 // fp32 (flash_dq_kernel): fp32 FMAs on the CUDA cores, where TF32 would
 // change the reference's fp32 numerics, so their issue rate bounds it. One
@@ -129,91 +139,138 @@ __global__ void __launch_bounds__(kRows * Layout<D>::value)
   }
 }
 
+// Keys a stage of the bf16 kernel streams.
+constexpr int kDqKeys = 64;
+
 template <int D>
-__global__ void __launch_bounds__(kTcWarps * 32)
-    flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const __nv_bfloat16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        __nv_bfloat16* __restrict__ dq, int T, int n_tiles,
-                        bool causal, float scale) {
-  constexpr int S = Tc<D>::stride;
-  constexpr int N = Tc<D>::cols;
-  constexpr int TILE = kRows * S;
+__global__ void __launch_bounds__(kSm90Threads, 1)
+    flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dq, int T, int n_tiles,
+                         bool causal, float scale) {
+  using L = Sm90<D>;
+  constexpr int BK = kDqKeys;
+  constexpr int QT = L::tile(kCtaRows);  // bytes of Q (and of dO)
+  constexpr int KT = L::tile(BK);        // bytes of a K (and a V) tile
+  constexpr int STAGE = 2 * KT;          // a multiple of 1024
   extern __shared__ float4 smem4[];
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem4);  // [kRows][S]
-  __nv_bfloat16* sdo = sq + TILE;                                // [kRows][S]
-  __nv_bfloat16* sk = sdo + TILE;  // [2][kRows][S], double-buffered
-  __nv_bfloat16* sv = sk + 2 * TILE;
+  uint8_t* sq = align1024(smem4);
+  uint8_t* sdo = sq + QT;
+  uint8_t* ring = sdo + QT;  // stage s: K, V
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + kStages * STAGE);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
 
   const int BH = gridDim.x / n_tiles;
   const int bh = blockIdx.x % BH;
-  const int q0 = (n_tiles - 1 - (int)blockIdx.x / BH) * kRows;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t base = (size_t)bh * T * D;
-  const int row_w = q0 + 16 * warp;  // this warp's first row
-  const int k_end = causal ? min(T, q0 + kRows) : T;
-  const int n_k = (k_end + kRows - 1) / kRows;
+  const int q0 = (n_tiles - 1 - (int)blockIdx.x / BH) * kCtaRows;
+  const int k_end = causal ? min(T, q0 + kCtaRows) : T;
+  const int n_k = (k_end + BK - 1) / BK;
 
-  load_tile_async<D>(sq, q + base, q0, T);
-  load_tile_async<D>(sdo, dout + base, q0, T);
-  load_tile_async<D>(sk, k + base, 0, T);
-  load_tile_async<D>(sv, v + base, 0, T);
-  cp_async_commit();
-  // This lane's rows are row_w + lane / 4 and 8 below it.
-  float row_lse[2], row_delta[2];
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * 4);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers * 128) {
+    // The producer warpgroup: one thread issues every load.
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x != kConsumers * 128) return;
+    mbar_arrive_expect_tx(q_full, 2 * QT);
+    for (int p = 0; p < L::panels; ++p) {
+      tma_load_3d(sq + p * kCtaRows * 128, &tm_q, q_full, 64 * p, q0, bh);
+      tma_load_3d(sdo + p * kCtaRows * 128, &tm_do, q_full, 64 * p, q0, bh);
+    }
+    for (int it = 0; it < n_k; ++it) {
+      const int s = it % kStages;
+      uint8_t* st = ring + s * STAGE;
+      wait_phase(&empty[s], ((it / kStages) & 1) ^ 1);
+      mbar_arrive_expect_tx(&full[s], STAGE);
+      for (int p = 0; p < L::panels; ++p) {
+        tma_load_3d(st + p * BK * 128, &tm_k, &full[s], 64 * p, it * BK, bh);
+        tma_load_3d(st + KT + p * BK * 128, &tm_v, &full[s], 64 * p, it * BK,
+                    bh);
+      }
+    }
+    return;
+  }
+
+  // A consumer warpgroup: queries rw .. rw + 63; this thread's are
+  // rw + 16 warp + g and 8 below it, its keys in a tile k0 + 8 j + 2 t + e.
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = threadIdx.x / 128;
+  const int warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int rw = q0 + kWgRows * wg;
+  const float scale_log2 = scale * kLog2e;
+  float lse_log2[2], row_delta[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int r = row_w + lane / 4 + 8 * h;
-    row_lse[h] = r < T ? lse[(size_t)bh * T + r] : 0.f;
+    const int r = rw + 16 * warp + g + 8 * h;
+    lse_log2[h] = r < T ? lse[(size_t)bh * T + r] * kLog2e : 0.f;
     row_delta[h] = r < T ? delta[(size_t)bh * T + r] : 0.f;
   }
-
-  float acc[D / 8][4];
+  float acc[L::panels][32];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int p = 0; p < L::panels; ++p)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
+  wait_phase(q_full, 0);
 
   for (int it = 0; it < n_k; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_k) {
-      load_tile_async<D>(sk + (buf ^ 1) * TILE, k + base, (it + 1) * kRows, T);
-      load_tile_async<D>(sv + (buf ^ 1) * TILE, v + base, (it + 1) * kRows, T);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* kt = sk + buf * TILE;
-    const __nv_bfloat16* vt = sv + buf * TILE;
-#pragma unroll 1
-    for (int c0 = 0; c0 < kRows; c0 += N) {
-      const int col0 = it * kRows + c0;
-      // Past T, or every key after every row of this warp: P = 0.
-      if (col0 >= T || (causal && col0 > row_w + 15)) break;
-      float s[N / 8][4], dp[N / 8][4];
-      scores<D, N>(s, dp, sq + 16 * warp * S, sdo + 16 * warp * S,
-                   kt + c0 * S, vt + c0 * S);
+    const int s = it % kStages;
+    const int k0 = it * BK;
+    wait_phase(&full[s], (it / kStages) & 1);
+    // Rows past T are never stored; keys all after every row: P = 0.
+    if (rw < T && !(causal && k0 > rw + kWgRows - 1)) {
+      const uint8_t* sk = ring + s * STAGE;
+      const uint8_t* sv = sk + KT;
+      float ds[BK / 2], dp[BK / 2];  // S then P then dS; dP
+      wgmma_fence();
+      dots_sm90<D, kCtaRows, BK>(ds, sq, rw - q0, sk);
+      dots_sm90<D, kCtaRows, BK>(dp, sdo, rw - q0, sv);
+      wgmma_wait<1>();
+      fence_regs(ds);
+      // Only a tile on the diagonal or past T computes the mask.
+      const bool edge = (causal && k0 + BK - 1 > rw) || k0 + BK > T;
 #pragma unroll
-      for (int j = 0; j < N / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = row_w + lane / 4 + 8 * (e >> 1);
-          const int col = col0 + 8 * j + 2 * (lane % 4) + (e & 1);
-          const bool masked = col >= T || row >= T || (causal && col > row);
-          const float p =
-              masked ? 0.f : expf(s[j][e] * scale - row_lse[e >> 1]);
-          s[j][e] = p * (dp[j][e] - row_delta[e >> 1]);  // dS
+      for (int i = 0; i < BK / 2; ++i) {
+        const int h = (i >> 1) & 1;
+        float p = ex2_approx(fmaf(ds[i], scale_log2, -lse_log2[h]));
+        if (edge) {
+          const int row = rw + 16 * warp + g + 8 * h;
+          const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+          if (col >= T || (causal && col > row)) p = 0.f;
         }
-      accumulate<D, N>(acc, s, kt + c0 * S);
+        ds[i] = p;
+      }
+      wgmma_wait<0>();
+      fence_regs(dp);
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i)
+        ds[i] = ds[i] * (dp[i] - row_delta[(i >> 1) & 1]);
+      uint32_t ds_hi[BK / 16][4], ds_lo[BK / 16][4];
+      a_pairs<BK>(ds, ds_hi, ds_lo);
+      wgmma_fence();
+      accumulate_sm90<D, BK>(acc, ds_hi, ds_lo, sk);  // dQ += dS K
+      wgmma_wait<0>();
+#pragma unroll
+      for (int p = 0; p < L::panels; ++p) fence_regs(acc[p]);
     }
-    __syncthreads();
+    // This warp's wgmmas that read the stage have completed.
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
-  store_rows<D>(dq + base, acc, row_w, T, scale);
+  store_wg_rows<D>(dq + (size_t)bh * T * D, acc, rw, T, scale);
 }
 
 template <typename scalar_t, int D>
@@ -221,18 +278,29 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int BH, int T, int causal, float scale,
                       cudaStream_t stream) {
-  const int n_tiles = (T + kRows - 1) / kRows;
   if constexpr (std::is_same<scalar_t, __nv_bfloat16>::value) {
-    const size_t smem = (size_t)6 * kRows * Tc<D>::stride * 2;
-    auto kernel = flash_dq_mma_kernel<D>;
-    cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<(unsigned)BH * n_tiles, kTcWarps * 32, smem, stream>>>(
-        static_cast<const scalar_t*>(q), static_cast<const scalar_t*>(k),
-        static_cast<const scalar_t*>(v), static_cast<const scalar_t*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<scalar_t*>(dq), T, n_tiles, causal != 0, scale);
+    using L = Sm90<D>;
+    constexpr int BK = kDqKeys;
+    CUtensorMap tm_q, tm_k, tm_v, tm_do;
+    cudaError_t err;
+    if ((err = slab_map(&tm_q, q, BH, T, D, kCtaRows)) != cudaSuccess ||
+        (err = slab_map(&tm_k, k, BH, T, D, BK)) != cudaSuccess ||
+        (err = slab_map(&tm_v, v, BH, T, D, BK)) != cudaSuccess ||
+        (err = slab_map(&tm_do, dout, BH, T, D, kCtaRows)) != cudaSuccess)
+      return err;
+    if (reinterpret_cast<uintptr_t>(dq) % 4) return cudaErrorMisalignedAddress;
+    const int n_tiles = (T + kCtaRows - 1) / kCtaRows;
+    const size_t smem = 1024 + 2 * (size_t)L::tile(kCtaRows) +
+                        (size_t)kStages * 2 * L::tile(BK) +
+                        (1 + 2 * kStages) * 8;
+    auto kernel = flash_dq_sm90_kernel<D>;
+    if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+    kernel<<<(unsigned)BH * n_tiles, kSm90Threads, smem, stream>>>(
+        tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<scalar_t*>(dq), T,
+        n_tiles, causal != 0, scale);
   } else {
+    const int n_tiles = (T + kRows - 1) / kRows;
     const size_t smem =
         (size_t)(2 * kRows + 2 * kTile) * Layout<D>::stride * 4;
     auto kernel = flash_dq_kernel<scalar_t, D>;
@@ -250,7 +318,9 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
 }  // namespace tepdist
 
 // q, k, v, dout, dq: [BH, T, D] of one dtype (fp32, or bf16 when is_bf16);
-// lse, delta: [BH, T] fp32. Returns the launch's cudaError_t.
+// lse, delta: [BH, T] fp32. Returns the launch's cudaError_t,
+// cudaErrorMisalignedAddress for a bf16 operand that TMA cannot take (not
+// 16-byte aligned).
 extern "C" int tepdist_flash_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, void* dq, int BH, int T,

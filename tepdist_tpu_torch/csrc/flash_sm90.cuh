@@ -1,0 +1,242 @@
+// The Hopper (sm_90a) instructions of the bf16 backward kernels
+// (flash_dq.cu, flash_dkv.cu), one __device__ function each, and the shared
+// memory matrix descriptor that wgmma reads: nothing else. Every other line
+// of the kernels is plain CUDA C++. tests/cuda_emu/flash_sm90.cuh is a host
+// stand-in with the same names and layouts; flash_common.cuh includes this
+// header with angle brackets, so a host build that puts that directory
+// first on the include path picks the stand-in.
+//
+// Layouts (PTX ISA, "Asynchronous Warpgroup Level Matrix Multiply"), for a
+// warpgroup of 128 threads, w = warp within it, lane = threadIdx.x % 32,
+// g = lane / 4, t = lane % 4:
+//   D (64 x N fp32, m64nNk16): d[4j + 2h + e] = (row 16w + g + 8h,
+//     column 8j + 2t + e), j < N / 8, h and e in {0, 1};
+//   A from registers (64 x 16 bf16): a[0] = (16w + g, 2t..2t+1),
+//     a[1] = (16w + g + 8, 2t..2t+1), a[2] = (16w + g, 2t+8..2t+9),
+//     a[3] = (16w + g + 8, 2t+8..2t+9), the lower column in the low half;
+//   operands in shared memory: 128-byte swizzle (what TMA's
+//     CU_TENSOR_MAP_SWIZZLE_128B writes): a row of 64 bf16 is 128 bytes,
+//     and the 16-byte piece c of the row at byte address r * 128 (within
+//     a 1024-byte-aligned block of 8 rows) lies at piece c ^ (r % 8).
+//     K-major (A, or B with TRANS_B = 0): element (m, k) at start + (m / 8)
+//     * SBO + (m % 8) * 128 + 2k, before the swizzle; the start moves by 32
+//     bytes for each 16 columns of k. MN-major (B with TRANS_B = 1, stored
+//     as rows of k): element (k, n) at start + (n / 64) * LBO + 2 (n % 64)
+//     + (k / 8) * SBO + (k % 8) * 128. The swizzle acts on the address bits
+//     (bits 4-6 ^= bits 7-9), so every tile is 1024-byte aligned.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace tepdist {
+
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The 64-bit descriptor of a bf16 tile in shared memory with the 128-byte
+// swizzle: start address, leading and stride byte offsets (each >> 4),
+// base offset 0, layout type 1 (128B) in bits 62-63.
+__device__ __forceinline__ uint64_t smem_desc(const void* start, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((shared_addr(start) & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+// ---- wgmma --------------------------------------------------------------
+
+// Orders this thread's register and shared-memory accesses before the
+// warpgroup's next wgmma.mma_async.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+// Closes the group of wgmma.mma_async issued since the last commit.
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Waits until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// No instruction: tells the compiler that r may change here, so that no
+// read of a wgmma accumulator moves above the wait that completes it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// D (64 x 64, fp32) = A B + (scale_d ? D : 0), A (64 x 16) and B (16 x 64)
+// bf16 in shared memory, through their descriptors; A is K-major, B is
+// K-major (TRANS_B = 0: stored as 64 rows of k) or MN-major (TRANS_B = 1:
+// stored as 16 rows of n). Every thread of the warpgroup executes it.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
+                                            uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B)
+      : "memory");
+}
+
+// The same, 32 columns wide.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a,
+                                            uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, %19;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B)
+      : "memory");
+}
+
+// The same with A from registers (a[0..3] as in the header comment).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d), "n"(TRANS_B)
+      : "memory");
+}
+
+// ---- mbarrier -----------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   shared_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Makes the initialised barriers visible to the other threads and to the
+// async proxy (TMA).
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival, and bytes more of transactions for the current phase.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          shared_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   shared_addr(bar))
+               : "memory");
+}
+
+// Whether the phase of the given parity has completed (the barrier's
+// current phase has the other parity); may suspend the thread a while.
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(shared_addr(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// ---- TMA ------------------------------------------------------------------
+
+// The box of a 3-D tensor map at (c0, c1, c2), innermost first, into shared
+// memory at dst, completing its bytes on bar. Elements outside the tensor
+// arrive as zeros and count.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(shared_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(shared_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// The same for a 1-D tensor map.
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(shared_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(shared_addr(bar)), "r"(c0)
+      : "memory");
+}
+
+// ---- arithmetic -----------------------------------------------------------
+
+// 2^x by the special-function unit (relative error about 2^-22, results
+// below 2^-126 flushed to zero): exp2f without its denormal handling.
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---- registers ------------------------------------------------------------
+
+// This warpgroup's register limit per thread, raised or lowered to R (a
+// multiple of 8 in [24, 256]); every warp of the warpgroup executes it.
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+}  // namespace tepdist

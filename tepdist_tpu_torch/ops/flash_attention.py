@@ -69,6 +69,9 @@ _ARGTYPES = {
 
 
 _entries: Dict[str, object] = {}
+# cudaErrorMisalignedAddress: what the bf16 backward entries return for an
+# operand TMA cannot take.
+_MISALIGNED = 716
 
 
 def _entry(name: str):
@@ -116,6 +119,10 @@ def _launch(name: str, device: torch.device, *args) -> None:
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         err = _entry(name)(*args, stream)
+    if err == _MISALIGNED:
+        raise RuntimeError(f"{name}: an operand's address is not 16-byte "
+                           f"aligned, which the kernel's TMA loads need "
+                           f"(CUDA error {err})")
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")

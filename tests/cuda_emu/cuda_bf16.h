@@ -20,3 +20,11 @@ inline __nv_bfloat16 __float2bfloat16(float f) {
   return __nv_bfloat16{(uint16_t)(u >> 16)};
 }
 inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 x) { return x.bits; }
+struct __nv_bfloat162 {
+  __nv_bfloat16 x, y;  // x in the low 16 bits, as on the device
+};
+inline __nv_bfloat162 __floats2bfloat162_rn(float lo, float hi) {
+  return __nv_bfloat162{__float2bfloat16(lo), __float2bfloat16(hi)};
+}
+inline float __low2float(__nv_bfloat162 x) { return __bfloat162float(x.x); }
+inline float __high2float(__nv_bfloat162 x) { return __bfloat162float(x.y); }

@@ -6,10 +6,11 @@ No GPU or nvcc is needed: each CUDA thread runs as a host thread and
 ``__syncthreads`` is a barrier, so the kernels' indexing, tiling, causal
 tile skipping, ragged-edge masking and online softmax run exactly as
 written, in fp32 on the host. The tensor-core instructions of the bf16
-kernels (``csrc/flash_mma.cuh``) run as host stand-ins with the same
-fragment layouts (``tests/cuda_emu/flash_mma.cuh``). That checks their
-logic on every host; only ``chip_smoke.py`` checks them as nvcc builds
-them, on the card.
+kernels (``csrc/flash_mma.cuh`` for the forward; ``csrc/flash_sm90.cuh``,
+wgmma, TMA and mbarriers, for dQ and dK/dV) run as host stand-ins with
+the same layouts (``tests/cuda_emu/``). That checks their logic on every
+host; only ``chip_smoke.py`` checks them as nvcc builds them, on the
+card.
 
 Tolerance: fp32 atol 2e-5 / rtol 1e-4 (sums in another order). bf16
 outputs: both sides compute in fp32 and round once to bf16, so they may
@@ -46,11 +47,14 @@ def emulated(tmp_path_factory):
     procs = {}
     for name in NAMES:
         src = (_build.CSRC / f"{name}.cu").read_text()
-        # One shared-memory arena for the block, and launches as calls.
+        # One shared-memory arena for the block, 1024-byte aligned as the
+        # 128-byte swizzle needs and known to the wgmma and TMA stand-ins,
+        # and launches as calls.
         src = src.replace(
             '#include "flash_common.cuh"',
             '#include "flash_common.cuh"\n'
-            "namespace tepdist { float4 smem4[16384]; }")
+            "namespace tepdist { alignas(1024) float4 smem4[16384];\n"
+            "const bool emu_arena = (emu_smem_base = (char*)smem4, true); }")
         src = re.sub(r"(\w+)<<<(.*?)>>>\(", r"::emu::launch(\1, \2, ", src,
                      flags=re.S)
         cpp = out / f"{name}.cpp"
@@ -87,7 +91,7 @@ def _close(got, ref, bf16):
     (64, 32, torch.bfloat16, False),
     (33, 128, torch.float32, True),
     (1, 16, torch.float32, True),
-    # bf16 dQ and dK/dV run on the tensor-core stand-ins (flash_mma.cuh):
+    # bf16 dQ and dK/dV run on the Hopper stand-ins (flash_sm90.cuh):
     # ragged and aligned T, one and several tiles, every head dim.
     (100, 16, torch.bfloat16, True),
     (100, 16, torch.bfloat16, False),

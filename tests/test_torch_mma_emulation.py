@@ -2,9 +2,9 @@
 flash_mma.cuh) against numpy, and their fragment layouts against the PTX
 ISA's tables for ``mma.m16n8k16`` and ``ldmatrix``.
 
-The bf16 kernels (``csrc/flash_fwd.cu``, ``csrc/flash_dq.cu``,
-``csrc/flash_dkv.cu``) run every dot through those instructions, and the
-kernel emulation test runs them through the stand-ins. A stand-in whose layout differed from the
+The bf16 forward (``csrc/flash_fwd.cu``) runs every dot through those
+instructions, and the kernel emulation test runs it through the
+stand-ins. A stand-in whose layout differed from the
 hardware's would let a kernel with the same mistake pass there, so this
 file pins each layout to the ISA independently of the kernels: one warp
 loads a 16x16 A and two 8-wide B tiles with ``ldmatrix`` (B with and
