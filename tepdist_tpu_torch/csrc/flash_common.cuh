@@ -16,19 +16,13 @@
 // fp32 FMA, so the kernels compute what the Pallas kernels compute (they
 // upcast Q, K, V to fp32 before both dots).
 //
-// Warp-level tensor-core path (bf16 forward): a CTA of kTcWarps warps, 16
-// owned rows each; bf16 tiles in shared memory (Tc::stride), loaded with
-// cp.async, and every dot an mma.sync of flash_mma.cuh with fp32 sums.
-//
-// Hopper path (bf16 dQ and dK/dV): warpgroup-wide wgmma on tiles that TMA
-// brings into shared memory under mbarriers (flash_sm90.cuh); see "Hopper
-// path" below.
-//
-// Both tensor-core paths: the first dots (S, dP) multiply bf16 inputs
+// Hopper path (bf16 forward, dQ and dK/dV): warpgroup-wide wgmma on tiles
+// that TMA brings into shared memory under mbarriers (flash_sm90.cuh); see
+// "Hopper path" below. The first dots (S, dP) multiply bf16 inputs
 // exactly, as the Pallas kernels' fp32 dots of upcast bf16 do; the second
-// dots take the fp32 P or dS as a hi/lo pair of bf16 values (split2,
-// split_pair), so the product carries P to about 2^-17 relative instead of
-// rounding it to bf16.
+// dots take the fp32 P or dS as a hi/lo pair of bf16 values (split_pair),
+// so the product carries P to about 2^-17 relative instead of rounding it
+// to bf16.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -40,8 +34,7 @@
 
 // Angle brackets: found through the include path, never beside this file,
 // so the host build of tests/test_torch_kernel_emulation.py gets its
-// stand-ins (tests/cuda_emu/flash_mma.cuh, tests/cuda_emu/flash_sm90.cuh).
-#include <flash_mma.cuh>
+// stand-in (tests/cuda_emu/flash_sm90.cuh).
 #include <flash_sm90.cuh>
 
 namespace tepdist {
@@ -125,163 +118,16 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, acc);
 }
 
-// ---- Tensor-core path --------------------------------------------------
-
-constexpr int kTcWarps = 4;  // warps of a CTA; each owns 16 of the kRows
-
-template <int D>
-struct Tc {
-  // bf16 row stride in shared memory: 16 bytes of padding shift each row by
-  // four banks, so the eight 16-byte rows of one ldmatrix hit distinct
-  // banks, and rows stay 16-byte aligned for cp.async.
-  static constexpr int stride = D + 8;
-  // Streamed rows a warp scores per register round (S and dP hold
-  // cols / 2 floats each), fewer at D = 128 where the accumulators of the
-  // owned rows take D / 2 floats each.
-  static constexpr int cols = D <= 64 ? 64 : 32;
-};
-
-// This lane's row and column offsets within a 16x16 tile for ldmatrix_x4.
-// Pattern "a" gives an A operand from a row-major [m][k] tile, or with
-// .trans two B operands (n 0-7, n 8-15) from a row-major [k][n] tile;
-// pattern "b" gives two B operands from a row-major [n][k] tile, without
-// .trans. Either way registers {0, 1} and {2, 3} are the two 8-wide halves.
-__device__ __forceinline__ int ldm_row_a(int lane) {
-  return (lane & 7) + ((lane >> 3) & 1) * 8;
-}
-__device__ __forceinline__ int ldm_col_a(int lane) { return (lane >> 4) * 8; }
-__device__ __forceinline__ int ldm_row_b(int lane) {
-  return (lane & 7) + (lane >> 4) * 8;
-}
-__device__ __forceinline__ int ldm_col_b(int lane) {
-  return ((lane >> 3) & 1) * 8;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-// x0, x1 as packed bf16 pairs with x = hi + lo to about 2^-17 relative.
-__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat16 h0 = __float2bfloat16(x0), h1 = __float2bfloat16(x1);
-  hi = pack_bf16(h0, h1);
-  lo = pack_bf16(__float2bfloat16(x0 - __bfloat162float(h0)),
-                 __float2bfloat16(x1 - __bfloat162float(h1)));
-}
-
-// Rows [row0, row0 + ROWS) of one bf16 [T, D] slab into shared memory with
-// row stride Tc<D>::stride, by cp.async in 16-byte pieces; rows at or past T
-// (the ragged edge) are zero. The caller commits and waits.
-template <int D, int ROWS = kRows>
-__device__ __forceinline__ void load_tile_async(
-    __nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src, int row0,
-    int T) {
-  constexpr int kPieces = D / 8;  // 16-byte pieces per row
-  for (int idx = threadIdx.x; idx < ROWS * kPieces; idx += blockDim.x) {
-    const int r = idx / kPieces, c = (idx % kPieces) * 8;
-    const int g = row0 + r;
-    cp_async_16(dst + r * Tc<D>::stride + c,
-                src + (size_t)(g < T ? g : 0) * D + c, g < T);
-  }
-}
-
-// One warp's S = A X^T for R blocks of 16 owned rows against N streamed
-// rows (x: the first, in shared memory), D deep, with the A operands in
-// registers (a[r][kk]: block r, columns 16kk..16kk+15, as ldmatrix_x4 with
-// pattern "a" leaves them). Each B operand is loaded once for all R blocks.
-// Tile j of s[r] covers streamed rows 8j..8j+7 in the accumulator layout.
-template <int D, int N, int R>
-__device__ __forceinline__ void score(float (&s)[R][N / 8][4],
-                                      const uint32_t (&a)[R][D / 16][4],
-                                      const __nv_bfloat16* x) {
-  constexpr int S = Tc<D>::stride;
-  const int lane = threadIdx.x % 32;
-  const int br = ldm_row_b(lane), bc = ldm_col_b(lane);
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int j = 0; j < N / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[r][j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-    for (int jj = 0; jj < N / 16; ++jj) {
-      uint32_t fx[4];
-      ldmatrix_x4(fx, x + (jj * 16 + br) * S + kk * 16 + bc);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        mma_bf16_16816(s[r][2 * jj], a[r][kk], fx);
-        mma_bf16_16816(s[r][2 * jj + 1], a[r][kk], fx + 2);
-      }
-    }
-}
-
-// acc += P X for one warp: P (16 x N, fp32, in the layout scores() leaves)
-// against N streamed rows of X (x: the first, in shared memory), D wide.
-// Two tiles of P make one A operand straight from registers, fed as a
-// hi/lo pair of bf16 values; X comes in as B through ldmatrix .trans.
-template <int D, int N>
-__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
-                                           const float (&p)[N / 8][4],
-                                           const __nv_bfloat16* x) {
-  constexpr int S = Tc<D>::stride;
-  const int lane = threadIdx.x % 32;
-  const int ar = ldm_row_a(lane), ac = ldm_col_a(lane);
-#pragma unroll
-  for (int kq = 0; kq < N / 16; ++kq) {
-    uint32_t hi[4], lo[4];
-    split2(p[2 * kq][0], p[2 * kq][1], hi[0], lo[0]);
-    split2(p[2 * kq][2], p[2 * kq][3], hi[1], lo[1]);
-    split2(p[2 * kq + 1][0], p[2 * kq + 1][1], hi[2], lo[2]);
-    split2(p[2 * kq + 1][2], p[2 * kq + 1][3], hi[3], lo[3]);
-#pragma unroll
-    for (int dd = 0; dd < D / 16; ++dd) {
-      uint32_t fx[4];
-      ldmatrix_x4_trans(fx, x + (kq * 16 + ar) * S + dd * 16 + ac);
-      mma_bf16_16816(acc[2 * dd], hi, fx);
-      mma_bf16_16816(acc[2 * dd], lo, fx);
-      mma_bf16_16816(acc[2 * dd + 1], hi, fx + 2);
-      mma_bf16_16816(acc[2 * dd + 1], lo, fx + 2);
-    }
-  }
-}
-
-// One warp's 16 x D fp32 accumulator to rows [row0, row0 + 16) of a bf16
-// [T, D] slab, this lane's row row0 + lane / 4 times mul[0] and the row 8
-// below it times mul[1]; rows at or past T are not written.
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ out,
-                                           const float (&acc)[D / 8][4],
-                                           int row0, int T,
-                                           const float (&mul)[2]) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = row0 + lane / 4 + 8 * h;
-    if (r >= T) continue;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int c = 8 * j + 2 * (lane % 4);
-      out[(size_t)r * D + c] = __float2bfloat16(acc[j][2 * h] * mul[h]);
-      out[(size_t)r * D + c + 1] =
-          __float2bfloat16(acc[j][2 * h + 1] * mul[h]);
-    }
-  }
-}
-
 // ---- Hopper path ----------------------------------------------------------
 //
-// A CTA of the bf16 dQ and dK/dV kernels has kConsumers warpgroups, each
-// owning kWgRows rows of the CTA's kCtaRows, and a producer warpgroup after
-// them, one thread of which issues TMA loads: the CTA's own rows once, then
-// the streamed operands in tiles through a ring of kStages stages, each
-// stage with a "full" mbarrier (the loads' bytes) and an "empty" one (an
-// arrival from each consumer warp once its wgmmas that read the stage have
-// completed). setmaxnreg moves registers from the producer warpgroup to the
+// A CTA of the bf16 forward, dQ and dK/dV kernels has kConsumers
+// warpgroups, each owning kWgRows rows of the CTA's kCtaRows, and a
+// producer warpgroup after them, one thread of which issues TMA loads: the
+// CTA's own rows once (the persistent forward: once an item, into one of
+// two buffers), then the streamed operands in tiles through a ring of
+// kStages stages, each stage with a "full" mbarrier (the loads' bytes) and
+// an "empty" one (an arrival from each consumer warp once its wgmmas that
+// read the stage have completed). setmaxnreg moves registers from the producer warpgroup to the
 // consumers: ptxas launches such a kernel with 65536 / 384 = 168 registers
 // a thread (whole warpgroups, one CTA an SM), and 128 x 24 + 256 x 240 is
 // the same 64512.
@@ -351,12 +197,14 @@ template <int D, int RA, int N>
 __device__ __forceinline__ void dots_sm90(float (&d)[N / 2],
                                           const uint8_t* a_tile, int a0,
                                           const uint8_t* b_tile) {
-  static_assert(N == 32 || N == 64, "wgmma_ss_n32 or wgmma_ss_n64");
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_ss_n32/64/128");
 #pragma unroll
   for (int kk = 0; kk < Sm90<D>::ksteps; ++kk) {
     const uint64_t a = desc_rows<RA>(a_tile, a0, kk);
     const uint64_t b = desc_rows<N>(b_tile, 0, kk);
-    if constexpr (N == 64)
+    if constexpr (N == 128)
+      wgmma_ss_n128<0>(d, a, b, kk > 0);
+    else if constexpr (N == 64)
       wgmma_ss_n64<0>(d, a, b, kk > 0);
     else
       wgmma_ss_n32<0>(d, a, b, kk > 0);
@@ -382,9 +230,10 @@ __device__ __forceinline__ void accumulate_sm90(
   wgmma_commit();
 }
 
-// split2 with one conversion per pair: the same bits, and on the card dQ
-// and dK/dV take 4-10% less time with it than with split2
-// (tools/torch_kernel_ab.py, PERF.md section 6).
+// x0, x1 as packed bf16 pairs with x = hi + lo to about 2^-17 relative,
+// with one conversion per pair: on the card dQ and dK/dV take 4-10% less
+// time with it than with one conversion per value (tools/torch_kernel_ab.py,
+// PERF.md section 6).
 __device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi,
                                            uint32_t& lo) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
@@ -411,13 +260,13 @@ __device__ __forceinline__ void a_pairs(const float (&x)[N / 2],
 }
 
 // Rows of one warpgroup's 64 x width fp32 accumulator (panels of 64
-// columns) to a bf16 [T, D] slab, times mul: this thread's rows row0 +
-// 16 w + g and 8 below it, where they are below T, and columns below D, two
-// at a time.
+// columns) to a bf16 [T, D] slab: this thread's rows row0 + 16 w + g times
+// mul[0] and 8 below it times mul[1], where they are below T, and columns
+// below D, two at a time.
 template <int D>
 __device__ __forceinline__ void store_wg_rows(
     __nv_bfloat16* __restrict__ out, const float (&acc)[Sm90<D>::panels][32],
-    int row0, int T, float mul) {
+    int row0, int T, const float (&mul)[2]) {
   const int wt = threadIdx.x % 128;
   const int r = row0 + 16 * (wt / 32) + (wt % 32) / 4;
   const int t = wt % 4;
@@ -431,10 +280,20 @@ __device__ __forceinline__ void store_wg_rows(
       for (int j = 0; j < 8; ++j) {
         if (64 * p + 8 * j >= D) continue;  // D is a multiple of 8
         const int c = 64 * p + 8 * j + 2 * t;
-        *reinterpret_cast<__nv_bfloat162*>(row + c) = __floats2bfloat162_rn(
-            acc[p][4 * j + 2 * h] * mul, acc[p][4 * j + 2 * h + 1] * mul);
+        *reinterpret_cast<__nv_bfloat162*>(row + c) =
+            __floats2bfloat162_rn(acc[p][4 * j + 2 * h] * mul[h],
+                                  acc[p][4 * j + 2 * h + 1] * mul[h]);
       }
   }
+}
+
+// The same with one multiplier for every row.
+template <int D>
+__device__ __forceinline__ void store_wg_rows(
+    __nv_bfloat16* __restrict__ out, const float (&acc)[Sm90<D>::panels][32],
+    int row0, int T, float mul) {
+  const float muls[2] = {mul, mul};
+  store_wg_rows<D>(out, acc, row0, T, muls);
 }
 
 // Host side: cuTensorMapEncodeTiled, a CUDA API entry found through the

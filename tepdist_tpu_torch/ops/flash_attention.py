@@ -69,8 +69,8 @@ _ARGTYPES = {
 
 
 _entries: Dict[str, object] = {}
-# cudaErrorMisalignedAddress: what the bf16 backward entries return for an
-# operand TMA cannot take.
+# cudaErrorMisalignedAddress: what the bf16 entries return for an operand
+# TMA cannot take.
 _MISALIGNED = 716
 
 

@@ -9,8 +9,13 @@
 // it. wgmma publishes each thread's A registers in slots of its warpgroup,
 // waits at the warpgroup's barrier, computes this thread's accumulator elements
 // from the operands the descriptors and slots give, and waits again before the
-// slots are reused; it completes at once, so commit and wait have nothing to
-// do. A TMA load copies its box at once (swizzled, zero past the tensor) and
+// slots are reused. Its result lands in the accumulator registers only at the
+// wgmma_wait<N> that completes its commit group, as on the card: each thread
+// keeps its products in flight with the group they were issued in (the count
+// of its commits so far), and wait<N> writes those of every group but the N
+// it committed last. Until then a read of the accumulator sees its value from
+// before the issue, and a write to it is lost; a wgmma that adds to an
+// accumulator still in flight adds to the value in flight. A TMA load copies its box at once (swizzled, zero past the tensor) and
 // then completes its bytes on the mbarrier; a box whose first element is not on
 // 16 bytes, or whose destination is not on 128, fails the launch as it does on
 // the card (cudaErrorIllegalInstruction, cudaErrorMisalignedAddress). An
@@ -33,6 +38,7 @@
 #include <cstdlib>
 #include <cstring>
 #include <thread>
+#include <vector>
 
 #include "cuda_bf16.h"
 #include "cuda_runtime.h"
@@ -65,10 +71,34 @@ inline uint64_t smem_desc(const void* start, uint32_t lbo, uint32_t sbo) {
 
 // ---- wgmma --------------------------------------------------------------
 
+// This thread's products in flight: the accumulator each lands in, its
+// commit group and its value (one entry an accumulator). Static: a library
+// of its own per host build, as emu_smem_base.
+struct EmuInFlight {
+  float* d;
+  int n;
+  long group;
+  float value[64];
+};
+static thread_local std::vector<EmuInFlight> emu_in_flight;
+static thread_local long emu_commits = 0;  // this thread's commit groups
+
 inline void wgmma_fence() {}
-inline void wgmma_commit() {}
+inline void wgmma_commit() { ++emu_commits; }
+
+// Groups 0 .. emu_commits - 1 are committed; all but the last N complete.
 template <int N>
-inline void wgmma_wait() {}
+inline void wgmma_wait() {
+  std::vector<EmuInFlight> still;
+  for (const EmuInFlight& f : emu_in_flight) {
+    if (f.group < emu_commits - N)
+      std::memcpy(f.d, f.value, sizeof(float) * f.n);
+    else
+      still.push_back(f);
+  }
+  emu_in_flight.swap(still);
+}
+
 template <int N>
 inline void fence_regs(float (&)[N]) {}
 
@@ -108,9 +138,15 @@ inline uint32_t emu_wg_a[1024][4];
 
 // d (this thread's N / 2 elements of the 64 x N accumulator) = A B
 // + (scale_d ? d : 0); A from the descriptor, or from every thread's a.
+// The result is in flight until the wait that completes this commit group.
 template <int N>
 inline void emu_wgmma(float* d, const uint32_t* a, uint64_t desc_a,
                       uint64_t desc_b, int trans_b, int scale_d) {
+  static_assert(N / 2 <= 64, "EmuInFlight holds 64 values");
+  EmuInFlight* prior = nullptr;  // d's value in flight, if any
+  for (EmuInFlight& f : emu_in_flight)
+    if (f.d == d) prior = &f;
+  const float* base = prior ? prior->value : d;
   const int wt = threadIdx.x % 128, wg0 = threadIdx.x - wt;
   if (a) std::memcpy(emu_wg_a[threadIdx.x], a, sizeof(emu_wg_a[0]));
   emu_syncwarpgroup();
@@ -135,10 +171,15 @@ inline void emu_wgmma(float* d, const uint32_t* a, uint64_t desc_a,
       const int m = 16 * warp + g + 8 * (i >> 1), n = 8 * j + 2 * t + (i & 1);
       float acc = 0.f;
       for (int k = 0; k < 16; ++k) acc += A(m, k) * B(k, n);
-      out[4 * j + i] = (scale_d ? d[4 * j + i] : 0.f) + acc;
+      out[4 * j + i] = (scale_d ? base[4 * j + i] : 0.f) + acc;
     }
   emu_syncwarpgroup();
-  std::memcpy(d, out, sizeof(out));
+  if (!prior) {
+    emu_in_flight.push_back(EmuInFlight{d, N / 2, 0, {}});
+    prior = &emu_in_flight.back();
+  }
+  prior->group = emu_commits;
+  std::memcpy(prior->value, out, sizeof(out));
 }
 
 template <int TRANS_B>
@@ -154,9 +195,27 @@ inline void wgmma_ss_n32(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
 }
 
 template <int TRANS_B>
+inline void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                          int scale_d) {
+  emu_wgmma<128>(d, nullptr, desc_a, desc_b, TRANS_B, scale_d);
+}
+
+template <int TRANS_B>
 inline void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
                          uint64_t desc_b, int scale_d) {
   emu_wgmma<64>(d, a, 0, desc_b, TRANS_B, scale_d);
+}
+
+// ---- named barriers -------------------------------------------------------
+
+template <int N>
+inline void bar_sync(int id) {
+  emu_named_barrier(id, N).arrive_and_wait();
+}
+
+template <int N>
+inline void bar_arrive(int id) {
+  (void)emu_named_barrier(id, N).arrive();
 }
 
 // ---- mbarrier -----------------------------------------------------------

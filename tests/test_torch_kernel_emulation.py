@@ -5,12 +5,12 @@ PyTorch versions.
 No GPU or nvcc is needed: each CUDA thread runs as a host thread and
 ``__syncthreads`` is a barrier, so the kernels' indexing, tiling, causal
 tile skipping, ragged-edge masking and online softmax run exactly as
-written, in fp32 on the host. The tensor-core instructions of the bf16
-kernels (``csrc/flash_mma.cuh`` for the forward; ``csrc/flash_sm90.cuh``,
-wgmma, TMA and mbarriers, for dQ and dK/dV) run as host stand-ins with
-the same layouts (``tests/cuda_emu/``). That checks their logic on every
-host; only ``chip_smoke.py`` checks them as nvcc builds them, on the
-card.
+written, in fp32 on the host. The Hopper instructions of the bf16
+kernels (``csrc/flash_sm90.cuh``: wgmma, TMA and mbarriers, for the
+forward, dQ and dK/dV) run as host stand-ins with the same layouts
+(``tests/cuda_emu/``), a wgmma's result landing only at the wait that
+completes it. That checks their logic on every host; only
+``chip_smoke.py`` checks them as nvcc builds them, on the card.
 
 Tolerance: fp32 atol 2e-5 / rtol 1e-4 (sums in another order). bf16
 outputs: both sides compute in fp32 and round once to bf16, so they may
@@ -171,3 +171,44 @@ def test_forward_large_scores_match_plain(emulated, T, D, causal):
     o_ref, lse_ref = tfa.flash_fwd_plain(q, k, v, causal, scale)
     assert _close(o, o_ref, True), "o"
     assert _close(lse, lse_ref, False), "lse"
+
+
+def _forward(emulated, q, k, v, causal, scale):
+    o, lse = torch.empty_like(q), torch.empty(q.shape[0], q.shape[1])
+    assert emulated["flash_fwd"](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                 o.data_ptr(), lse.data_ptr(),
+                                 *tfa._meta(q, causal, scale), None) == 0
+    return o, lse
+
+
+def _bf16_inputs(seed, T, D):
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.standard_normal((2, T, D)),
+                         dtype=torch.float32).to(torch.bfloat16)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_forward_ring_wraps_match_plain(emulated, causal):
+    """The bf16 forward at T = 520: a CTA of the last query tile streams
+    9 key tiles through the 3-stage ring, so every stage is refilled twice
+    and the producer waits on each stage's empty barrier; the last tile is
+    ragged."""
+    q, k, v = _bf16_inputs(520, 520, 64)
+    scale = 1.0 / math.sqrt(64)
+    o, lse = _forward(emulated, q, k, v, causal, scale)
+    o_ref, lse_ref = tfa.flash_fwd_plain(q, k, v, causal, scale)
+    assert _close(o, o_ref, True), "o"
+    assert _close(lse, lse_ref, False), "lse"
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_forward_reruns_give_the_same_bits(emulated, D):
+    """Each output row is summed by one CTA in a fixed order (no atomics),
+    so two runs of the bf16 forward on the same inputs agree bit for bit,
+    as chip_smoke.py checks on the card."""
+    q, k, v = _bf16_inputs(D, 200, D)
+    scale = 1.0 / math.sqrt(D)
+    o, lse = _forward(emulated, q, k, v, True, scale)
+    o2, lse2 = _forward(emulated, q, k, v, True, scale)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)

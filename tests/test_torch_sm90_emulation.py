@@ -3,9 +3,9 @@ flash_sm90.cuh) against numpy, and their layouts against the PTX ISA's
 tables for ``wgmma.mma_async``, its shared-memory matrix descriptor, the
 128-byte swizzle that ``cp.async.bulk.tensor`` writes, and ``mbarrier``.
 
-The bf16 backward kernels (``csrc/flash_dq.cu``, ``csrc/flash_dkv.cu``) run
-every dot through ``wgmma`` on tiles that TMA brings in, and the kernel
-emulation test runs them through the stand-ins. A stand-in whose layout
+The bf16 kernels (``csrc/flash_fwd.cu``, ``csrc/flash_dq.cu``,
+``csrc/flash_dkv.cu``) run every dot through ``wgmma`` on tiles that TMA
+brings in, and the kernel emulation test runs them through the stand-ins. A stand-in whose layout
 differed from the hardware's would let a kernel with the same mistake pass
 there, so this file pins each layout independently of the kernels: numpy
 places the operands in shared memory by the ISA's swizzle formula (piece c
@@ -62,7 +62,10 @@ void wgmma_kernel(int rs, const uint32_t* a_regs, int a_off, int a_sbo,
     }
   } else {
     const uint64_t da = smem_desc(arena + a_off, 16, a_sbo);
-    if constexpr (N == 64) {
+    if constexpr (N == 128) {
+      if (trans_b) wgmma_ss_n128<1>(d, da, db, 0);
+      else wgmma_ss_n128<0>(d, da, db, 0);
+    } else if constexpr (N == 64) {
       if (trans_b) wgmma_ss_n64<1>(d, da, db, 0);
       else wgmma_ss_n64<0>(d, da, db, 0);
     } else {
@@ -136,6 +139,71 @@ void mbar_kernel(const CUtensorMap* map, int* seen) {
   }
 }
 
+// One warpgroup, two commit groups: d1 = A B, then d2 = A B, with A at
+// offset 0 and B at b_off (both K-major, 64 x 16 in 64-wide rows). Each
+// thread's accumulators to seen[stage][thread][32] after issue (stage 0),
+// after wait<1> (1: d1 complete, d2 still in flight) and after wait<0>
+// (2): seen[stage][0] is d1's, seen[stage][1] d2's.
+void wait_kernel(int b_off, float* seen) {
+  const int t = threadIdx.x;
+  float d1[32], d2[32];
+  for (int i = 0; i < 32; ++i) d1[i] = d2[i] = 100.f;
+  const uint64_t da = smem_desc(arena, 16, 1024);
+  const uint64_t db = smem_desc(arena + b_off, 16, 1024);
+  auto record = [&](int stage) {
+    for (int i = 0; i < 32; ++i) {
+      seen[((stage * 2 + 0) * 128 + t) * 32 + i] = d1[i];
+      seen[((stage * 2 + 1) * 128 + t) * 32 + i] = d2[i];
+    }
+  };
+  wgmma_fence();
+  wgmma_ss_n64<0>(d1, da, db, 0);
+  wgmma_commit();
+  wgmma_ss_n64<0>(d2, da, db, 0);
+  wgmma_commit();
+  record(0);
+  wgmma_wait<1>();
+  fence_regs(d1);
+  record(1);
+  wgmma_wait<0>();
+  fence_regs(d2);
+  record(2);
+}
+
+// One warpgroup's 64 x D accumulator (acc given per thread, panels of 32)
+// to out, a bf16 [T, D] slab, by the per-row store_wg_rows: this thread's
+// rows times mul[2 * thread] and mul[2 * thread + 1].
+template <int D>
+void store_kernel(const float* acc_in, const float* mul, int row0, int T,
+                  __nv_bfloat16* out) {
+  const int t = threadIdx.x;
+  float acc[Sm90<D>::panels][32];
+  for (int p = 0; p < Sm90<D>::panels; ++p)
+    for (int i = 0; i < 32; ++i)
+      acc[p][i] = acc_in[(t * Sm90<D>::panels + p) * 32 + i];
+  const float m[2] = {mul[2 * t], mul[2 * t + 1]};
+  store_wg_rows<D>(out, acc, row0, T, m);
+}
+
+// Two warpgroups take turns on named barriers 1 and 2, as the forward's
+// consumers do: warpgroup w waits at 1 + w, and arrives at 2 - w when its
+// turn ends; warpgroup 1 arrives once first, warpgroup 0 waits once last.
+// Each turn's first thread appends its warpgroup to log, slowly.
+int turns_seen = 0;
+void pingpong_kernel(int rounds, int* log) {
+  const int wg = threadIdx.x / 128;
+  if (wg == 1) bar_arrive<256>(1);
+  for (int r = 0; r < rounds; ++r) {
+    bar_sync<256>(1 + wg);
+    if (threadIdx.x % 128 == 0) {
+      std::this_thread::sleep_for(std::chrono::milliseconds(1));
+      log[turns_seen++] = wg;
+    }
+    bar_arrive<256>(2 - wg);
+  }
+  if (wg == 0) bar_sync<256>(1);
+}
+
 // A producer (the threads from `consumers`) lowers its registers to
 // PRODUCER, the rest raise theirs to CONSUMER.
 template <int PRODUCER, int CONSUMER>
@@ -166,12 +234,36 @@ extern "C" void run_wgmma(int n, int rs, const uint8_t* smem,
                           float* d_out) {
   emu_smem_base = reinterpret_cast<char*>(arena);
   std::memcpy(arena, smem, sizeof(arena));
-  if (n == 64)
+  if (n == 128)
+    ::emu::launch(wgmma_kernel<128>, 1, 128, 0, nullptr, rs, a_regs, a_off,
+                  a_sbo, b_off, b_lbo, b_sbo, trans_b, d_out);
+  else if (n == 64)
     ::emu::launch(wgmma_kernel<64>, 1, 128, 0, nullptr, rs, a_regs, a_off,
                   a_sbo, b_off, b_lbo, b_sbo, trans_b, d_out);
   else
     ::emu::launch(wgmma_kernel<32>, 1, 128, 0, nullptr, rs, a_regs, a_off,
                   a_sbo, b_off, b_lbo, b_sbo, trans_b, d_out);
+}
+
+extern "C" void run_pingpong(int rounds, int* log) {
+  turns_seen = 0;
+  ::emu::launch(pingpong_kernel, 1, 256, 0, nullptr, rounds, log);
+}
+
+extern "C" void run_wait(const uint8_t* smem, int b_off, float* seen) {
+  emu_smem_base = reinterpret_cast<char*>(arena);
+  std::memcpy(arena, smem, sizeof(arena));
+  ::emu::launch(wait_kernel, 1, 128, 0, nullptr, b_off, seen);
+}
+
+extern "C" void run_store(int D, const float* acc, const float* mul,
+                          int row0, int T, __nv_bfloat16* out) {
+  if (D == 32)
+    ::emu::launch(store_kernel<32>, 1, 128, 0, nullptr, acc, mul, row0, T,
+                  out);
+  else
+    ::emu::launch(store_kernel<128>, 1, 128, 0, nullptr, acc, mul, row0, T,
+                  out);
 }
 
 extern "C" void run_accumulate(const uint8_t* smem, const float* x,
@@ -302,7 +394,7 @@ def test_descriptor_fields_follow_the_isa(lib):
 
 @pytest.mark.parametrize("n,rs,trans_b", [
     (64, False, False), (64, False, True), (32, False, False),
-    (64, True, False), (64, True, True)])
+    (64, True, False), (64, True, True), (128, False, False)])
 def test_wgmma_follows_the_isa(lib, n, rs, trans_b):
     """D = A B for m64nNk16 with A K-major in shared memory (or from
     registers) and B K-major (stored as N rows of k) or MN-major (stored as
@@ -358,6 +450,78 @@ def test_accumulate_carries_fp32_x_through_the_split(lib):
                                                      @ np.abs(b64)))
     # A single bf16 X would miss by about 2**-9 relative: the split matters.
     assert np.abs(got - ref).max() < 2.0 ** -12 * np.abs(ref).max()
+
+
+def test_named_barriers_alternate_two_warpgroups(lib):
+    """bar.sync / bar.arrive of 256 threads on barriers 1 and 2 let the
+    forward's two consumer warpgroups issue in turns, 0 first: each turn
+    ends before the other warpgroup's begins, and the last arrival of
+    warpgroup 1 is taken up, so the block ends."""
+    log = np.full(12, -1, np.int32)
+    lib.run_pingpong(6, _ptr(log))
+    assert list(log) == [0, 1] * 6
+
+
+def test_wgmma_result_lands_at_its_wait(lib):
+    """A wgmma's product reaches its accumulator only at the wait that
+    completes its commit group: read before, the accumulator holds its
+    value from before the issue (100); wait<1> completes the first of two
+    groups and leaves the second in flight (flash_dq.cu waits so for S
+    while dP runs); wait<0> completes both."""
+    rng = np.random.default_rng(3)
+    a, a_bits = _bf16(rng, (64, 16))
+    b, b_bits = _bf16(rng, (16, 64))
+    smem = np.zeros(ARENA, np.uint8)
+    a_rows = np.zeros((64, 64), np.uint16)
+    a_rows[:, :16] = a_bits
+    _place(smem, 0, a_rows)
+    b_rows = np.zeros((64, 64), np.uint16)
+    b_rows[:, :16] = b_bits.T  # row n holds k
+    _place(smem, 8192, b_rows)
+    seen = np.zeros((3, 2, 128, 32), np.float32)
+    lib.run_wait(_ptr(smem), 8192, _ptr(seen))
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+    stale = np.full((64, 64), 100.0)
+    tol = dict(rtol=1e-6, atol=1e-6 * np.abs(ref).max())
+    for stage, want in enumerate([(stale, stale), (ref, stale),
+                                  (ref, ref)]):
+        for which in range(2):
+            np.testing.assert_allclose(
+                _accumulator(seen[stage, which], 64), want[which], **tol,
+                err_msg=f"after stage {stage}, d{which + 1}")
+
+
+@pytest.mark.parametrize("D,row0,T", [(32, 0, 50), (128, 64, 100)])
+def test_store_rows_scales_each_row(lib, D, row0, T):
+    """The forward's epilogue: each thread's two rows times their own
+    multipliers (1 / l), rounded to bf16 once, columns past D and rows at
+    or past T left as they were."""
+    rng = np.random.default_rng(D + T)
+    panels = max(1, D // 64)
+    acc = rng.standard_normal((64, 64 * panels)).astype(np.float32)
+    row_mul = rng.uniform(0.5, 2.0, 64).astype(np.float32)
+    acc_in = np.zeros((128, panels, 32), np.float32)
+    mul = np.zeros((128, 2), np.float32)
+    for thread in range(128):
+        w, g, t = thread // 32, (thread % 32) // 4, thread % 4
+        for h in range(2):
+            mul[thread, h] = row_mul[16 * w + g + 8 * h]
+        for p in range(panels):
+            for j in range(8):
+                for i in range(4):
+                    acc_in[thread, p, 4 * j + i] = acc[
+                        16 * w + g + 8 * (i >> 1),
+                        64 * p + 8 * j + 2 * t + (i & 1)]
+    out = np.full((T, D), 0x7FC1, np.uint16)  # a NaN pattern: untouched
+    lib.run_store(D, _ptr(acc_in), _ptr(mul), row0, T, _ptr(out))
+    want = out.copy()
+    rows = min(64, T - row0)
+    prod = (acc[:rows, :D] * row_mul[:rows, None]).astype(np.float32)
+    bits = prod.view(np.uint32)
+    # round to nearest even, as __floats2bfloat162_rn does
+    rounded = ((bits + 0x7FFF + ((bits >> 16) & 1)) >> 16).astype(np.uint16)
+    want[row0:row0 + rows] = rounded
+    np.testing.assert_array_equal(out, want)
 
 
 @pytest.mark.parametrize("D,T,rows,c0,row0,bh", [
