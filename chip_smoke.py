@@ -174,7 +174,13 @@ calls (``plan_training`` + ``plan.step``, ``plan.save``/``restore``,
 15. tools: ``tools/torch_chaos_run.py``'s fleet, ``--kill-worker`` and
    ``--serve`` arms on in-process workers on the card, each passing its
    own assertion, and ``tools/torch_serve_load.py --config 1.5B
-   --workers 2`` (every request done; TTFT p50 / p99, tokens/s).
+   --workers 2`` (every request done; TTFT p50 / p99, tokens/s); then
+   the perf gate (``tools/torch_perf_gate.py``) on this run's own
+   numbers: serve_fleet's disagg TTFT and KV handoff p50, the
+   kill-worker arm's migration stall and the int8 wire ratio of
+   ``encode_literal`` on card tensors, recorded three times into a
+   history under ``chiprun_out/``; ``--check`` must pass and a seeded
+   regression of each key must trip it.
 16. explore_tools (last): a ``TepdistServicer`` over ``[cuda:0] * 4``
    behind ``inproc:`` explores GPT-2 1.5B width at 4 layers for a session
    with no mesh axes (SPMD meshes over its one-rank world, pipeline cuts
@@ -3637,11 +3643,13 @@ def _fleet_fidelity(trace_path) -> dict:
                              else "the task graph")}
 
 
-def phase_serve_fleet(fp32_results, trace_path) -> None:
+def phase_serve_fleet(fp32_results, trace_path) -> dict:
     """Fleet serving on card 0 (module comment at SHARD_*): the sharded
     servable, the prefill/decode pools and the fleet trace's fidelity
     report. Fails on any token mismatch, a leaked page, a flash launch or
-    a partial join."""
+    a partial join. Returns the timed (bf16) disagg run's
+    ``disagg_ttft_ms`` and ``kv_handoff_ms`` p50, the perf gate's
+    values."""
     import torch
 
     from tepdist_tpu_torch.models import gpt2
@@ -3699,6 +3707,7 @@ def phase_serve_fleet(fp32_results, trace_path) -> None:
         raise SystemExit(f"chip_smoke: the fleet trace's join is partial: "
                          f"{fidelity['join']}")
     torch.cuda.empty_cache()
+    return {k: disagg[k]["p50"] for k in ("disagg_ttft_ms", "kv_handoff_ms")}
 
 
 # examples phase: the user's entry points (examples_torch/), called through
@@ -3831,12 +3840,15 @@ TOOLS_CHAOS_ARMS = (("fleet", []),
 TOOLS_SERVE_LOAD = ["--config", "1.5B", "--workers", "2"]
 
 
-def phase_tools() -> None:
+def phase_tools(fleet_gate_values: dict) -> None:
     """``tools/torch_chaos_run.py``'s fleet, ``--kill-worker`` and
     ``--serve`` arms on the card (in-process workers on cuda:0), each
     passing its own assertion, then ``tools/torch_serve_load.py --config
     1.5B --workers 2``: every request done, TTFT p50 / p99 and tokens/s.
-    The ``--kill-master`` arm needs gRPC subprocesses: CPU tests only."""
+    The ``--kill-master`` arm needs gRPC subprocesses: CPU tests only.
+    Last, the perf gate on this run's numbers (``_perf_gate``):
+    ``fleet_gate_values`` from serve_fleet, the kill-worker arm's
+    migration stall and the int8 wire ratio."""
     import torch
 
     from tepdist_tpu_torch.ops import flash_attention as fa
@@ -3871,6 +3883,79 @@ def phase_tools() -> None:
         raise SystemExit(f"chip_smoke: the tools launched flash kernels "
                          f"{flash}")
     torch.cuda.empty_cache()
+    _perf_gate(dict(fleet_gate_values,
+                    migration_stall_ms=arms["kill_worker"][
+                        "migration_stall_ms"],
+                    quantized_ar_x=_quantized_ar_x()), smi)
+
+
+# The perf gate step (end of the tools phase; budget 15 s): each value is
+# recorded PERF_GATE_RECORDS times into a fresh history, then --check on
+# the same values must pass (exit 0) and --seed-regression KEY:PCT must
+# trip it (exit 1) for every key. The seeds are the smoke scripts' and
+# sit above each key's noise band (BAND_FLOOR_PCT; 10% by default).
+PERF_GATE_HISTORY = os.path.join(OUT_DIR, "torch_bench_history.jsonl")
+PERF_GATE_RECORDS = 3
+PERF_GATE_SEEDS = {"disagg_ttft_ms": 30, "kv_handoff_ms": 30,
+                   "migration_stall_ms": 50, "quantized_ar_x": 20}
+
+
+def _quantized_ar_x() -> float:
+    """``tools/torch_quant_ratio.py`` on card tensors: the f32 against
+    int8 wire bytes of ``encode_literal`` over the quant smoke's five
+    gradient tensors; the f32 round trip must be exact."""
+    got = _load_tool("torch_quant_ratio").measure("cuda")
+    if got["f32_roundtrip_err"] != 0.0:
+        raise SystemExit("chip_smoke: the f32 wire round trip of a card "
+                         "tensor is not exact")
+    return got["quantized_ar_x"]
+
+
+def _perf_gate(values: dict, smi: str) -> None:
+    """``tools/torch_perf_gate.py`` on ``values`` (module comment at
+    PERF_GATE_HISTORY); one line with the verdict rows."""
+    gate = _load_tool("torch_perf_gate")
+    values = {k: float(v) for k, v in values.items()}
+    keys = ",".join(sorted(values))
+    record = [a for k, v in sorted(values.items())
+              for a in ("--record-value", f"{k}={v!r}")]
+    base = ["--history", PERF_GATE_HISTORY]
+
+    def run(argv):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return gate.main(base + argv)
+
+    t0 = time.perf_counter()
+    if os.path.exists(PERF_GATE_HISTORY):
+        os.remove(PERF_GATE_HISTORY)
+    for _ in range(PERF_GATE_RECORDS):
+        run(record)
+    check = run(["--check", "--keys", keys] + record)
+    seeded = {}
+    for key in sorted(values):
+        pct = PERF_GATE_SEEDS[key]
+        out = run(["--check", "--keys", key, "--record-value",
+                   f"{key}={values[key]!r}", "--seed-regression",
+                   f"{key}:{pct}"])
+        seeded[key] = {"pct": pct, "rc": out["rc"],
+                       "verdict": out["rows"][0]["verdict"],
+                       "current": out["rows"][0]["current"],
+                       "band": out["rows"][0].get("band")}
+    seconds = time.perf_counter() - t0
+    emit({"phase": "perf_gate", "nvidia_smi": smi, "budget_seconds": 15,
+          "seconds": seconds, "history": PERF_GATE_HISTORY,
+          "values": values, "check_rc": check["rc"],
+          "rows": check["rows"], "seeded": seeded})
+    if check["rc"]:
+        raise SystemExit(f"chip_smoke: the perf gate failed on this run's "
+                         f"own values:\n{check['text']}")
+    if not all(v["rc"] == 1 and v["verdict"] == "regression"
+               for v in seeded.values()):
+        raise SystemExit(f"chip_smoke: a seeded regression did not trip "
+                         f"the perf gate: {seeded}")
+    if values["quantized_ar_x"] < 1.5:
+        raise SystemExit(f"chip_smoke: quantized_ar_x "
+                         f"{values['quantized_ar_x']} below 1.5")
 
 
 # explore_tools phase (ROADMAP C13 and item 18). Budget: 120 s.
@@ -4180,12 +4265,12 @@ def main() -> int:
     mark("serving")
     phase_serve_rpc(fp32_serving)
     mark("serve_rpc")
-    phase_serve_fleet(fp32_serving, FLEET_TRACE)
+    fleet_gate_values = phase_serve_fleet(fp32_serving, FLEET_TRACE)
     mark("serve_fleet")
     # The user's entry points: the examples and the fleet tools.
     example_launches = phase_examples()
     mark("examples")
-    phase_tools()
+    phase_tools(fleet_gate_values)
     mark("tools")
     explore_launches, explore_rows = phase_explore_tools(verify_text,
                                                          fleet_single_ms)

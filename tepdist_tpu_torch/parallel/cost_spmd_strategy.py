@@ -510,6 +510,7 @@ class CostSpmdStrategy:
         force_segments = n_sub if n_sub > 1 else None
         choice = None
         status = "greedy"
+        self._ilp_proven = False
         use_dp = force_segments is not None or (
             sub_thresh > 0 and len(self.graph.nodes) > sub_thresh)
         if use_dp and cones:
@@ -529,10 +530,18 @@ class CostSpmdStrategy:
             except Exception as e:  # noqa: BLE001 — fall back to greedy
                 log.warning("ILP solve failed (%s); falling back to greedy", e)
                 choice = None
+        # The repairs below are for a solve stopped at its time limit. A
+        # proven solve is kept as the reference keeps it: HiGHS proves
+        # within its default absolute gap (1e-6), which on a toy graph
+        # spans the whole objective, and a move there that splits an
+        # update beside replicated storage has a cost no objective prices
+        # (align_state_storage then gathers the weights every step;
+        # ROADMAP C16).
+        proven = status == "ilp" and self._ilp_proven
         if choice is None:
             choice = self._solve_greedy(cones, demands, var_props)
             status = "greedy"
-        elif self.mem_limit is None:
+        elif self.mem_limit is None and not proven:
             # A solve stopped at its time limit returns its incumbent, and
             # on large step graphs the greedy pass beats it (ROADMAP C5):
             # keep whichever assignment the objective prefers.
@@ -547,7 +556,7 @@ class CostSpmdStrategy:
             else:
                 self._var_choice = solved_vars
         self._finalize_var_choice(cones, choice, demands, var_props)
-        if self._polish(cones, choice, demands):
+        if not proven and self._polish(cones, choice, demands):
             self._finalize_var_choice(cones, choice, demands, var_props)
         # Price the CHOSEN inter-cone/var edges (the y-var part of the ILP
         # objective) so GraphStrategy carries the full comm cost — the
@@ -821,9 +830,8 @@ class CostSpmdStrategy:
         (at most ``max_sweeps`` sweeps), with the variables' storage
         fixed. A solve stopped at its time limit returns its incumbent,
         which on transformer step graphs at full width leaves cones
-        replicated beside an all-zero-edge split (ROADMAP C5); an optimal
-        solve admits no strict improvement and is returned unchanged.
-        Returns the number of moves."""
+        replicated beside an all-zero-edge split (ROADMAP C5). A proven
+        solve is not polished (``_solve``). Returns the number of moves."""
         consumers: Dict[int, set] = {}
         for (cid, _pi), lst in demands.items():
             for kind, key, _v, _w in lst:
@@ -1127,6 +1135,8 @@ class CostSpmdStrategy:
                 {"time_limit": min(self.env.ilp_time_limit, 0.8),
                  "mip_rel_gap": 0.03}),
         )
+        if active is None:
+            self._ilp_proven = res.status == 0
         if res.x is None:
             return None, float("inf")
         choice: Dict[int, int] = {}

@@ -289,6 +289,12 @@ class WorkerPlan:
         # and a retry recomputes bit-identically.
         self._completed: Dict[int, Dict[str, Any]] = {}
         self._completed_max = 4
+        # One step at a time, cache check included: a dead master's step
+        # can still be running here when its successor replays that step
+        # (readopt's abort+reset misses an execution that is not yet in a
+        # recv). Run beside it, the replay reads the old weights, then
+        # applies its update over the first's commit: twice.
+        self._run_lock = threading.Lock()
         self._staged_vars: Dict[int, Any] = {}
         self._staged_opt: Dict[int, List[Any]] = {}
         self.opt_states: Dict[int, List[Any]] = {}
@@ -328,6 +334,10 @@ class WorkerPlan:
 
     # ------------------------------------------------------------------
     def run_step(self, step: int) -> Dict[str, Any]:
+        with self._run_lock:
+            return self._run_step(step)
+
+    def _run_step(self, step: int) -> Dict[str, Any]:
         cached = self._completed.get(step)
         if cached is not None:
             # A replay of a completed step (its response was lost, or the

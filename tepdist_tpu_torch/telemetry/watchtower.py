@@ -720,6 +720,8 @@ class Watchtower:
         self.slo = SLOEngine(targets, board_=self._board)
         self.polls = 0
         self._cursors: Dict[int, Any] = {}      # per-worker RPC cursors
+        # Heartbeats taken in per gauge: the count of its histogram.
+        self._heartbeats: Dict[str, int] = {}
         self._worker_state: Dict[int, Dict[str, Any]] = {}
         self._step_ms: Deque[float] = deque(maxlen=256)
         self._thread: Optional[threading.Thread] = None
@@ -739,6 +741,42 @@ class Watchtower:
             self.scorer.add(int(w), "step_ms", float(ms))
 
     # -- polling --------------------------------------------------------
+    def skip_history(self) -> None:
+        """Start every worker's delta cursor at the end of what its rings
+        hold now, so the next poll reads only records written after this
+        call. The rings are process-wide: without it a monitor's first
+        poll takes in every record since they were last cleared, those
+        of earlier fleets and of steps taken before it attached."""
+        for ti, client in enumerate(self.clients):
+            try:
+                resp = client.get_telemetry_delta(
+                    cursors=self._cursors.get(ti))
+            except Exception:  # noqa: BLE001 — the first poll reports it
+                continue
+            self._cursors[ti] = resp.get("cursors")
+        self._new_heartbeats(metrics().snapshot())
+
+    def _new_heartbeats(self, snap: Dict[str, Any]
+                        ) -> List[Tuple[int, float]]:
+        """(worker, rtt ms) of each ``heartbeat_rtt_ms:<ti>`` gauge set
+        since the last call: a gauge holds the LAST heartbeat of any
+        fleet in the process, so it is taken only when its histogram's
+        count moved (each heartbeat observes both), once."""
+        out = []
+        hists = snap.get("histograms") or {}
+        for name, g in (snap.get("gauges") or {}).items():
+            if not name.startswith("heartbeat_rtt_ms:") or g is None:
+                continue
+            n = int((hists.get(name) or {}).get("count") or 0)
+            if n == self._heartbeats.get(name, 0):
+                continue
+            self._heartbeats[name] = n
+            try:
+                out.append((int(name.split(":", 1)[1]), float(g)))
+            except ValueError:
+                pass
+        return out
+
     def poll_once(self) -> Dict[str, Any]:
         """One monitor pass: delta-poll every worker, update digests,
         evaluate the scorer and SLO engine. Returns the status dict the
@@ -777,13 +815,8 @@ class Watchtower:
         # (heartbeat gauges land here even when the poller cannot see
         # worker rings, e.g. before the first fleet step).
         snap = metrics().snapshot()
-        for name, g in (snap.get("gauges") or {}).items():
-            if name.startswith("heartbeat_rtt_ms:") and g is not None:
-                try:
-                    self.scorer.add(int(name.split(":", 1)[1]),
-                                    "rtt_ms", float(g))
-                except ValueError:
-                    pass
+        for ti, rtt_ms in self._new_heartbeats(snap):
+            self.scorer.add(ti, "rtt_ms", rtt_ms)
         self.polls += 1
         self.scorer.evaluate()
         self.slo.observe(snap)

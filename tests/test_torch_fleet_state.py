@@ -456,3 +456,42 @@ def test_supervisor_rebuild_from_wal_delivers_once(tmp_path):
     ref.run_until_idle()
     assert got["b"]["tokens"] == ref.poll(["b"])[0]["tokens"]
     assert len(done["a"]) == 4
+
+
+def test_worker_runs_one_step_at_a_time():
+    """A replay of step k that reaches a worker while a dead master's step
+    k still runs there waits for it and is served from the completed-step
+    cache: run beside it, the replay read the old weights and applied its
+    update over the first's commit (stage 0's step applied twice, seen in
+    the kill-master chaos arm on a loaded host)."""
+    import threading
+    import time
+
+    from tepdist_tpu_torch.rpc.worker_plan import WorkerPlan
+
+    wp = WorkerPlan.__new__(WorkerPlan)
+    wp._run_lock = threading.Lock()
+    wp._completed = {}
+    inside, runs = [0], []
+
+    def body(step):
+        cached = wp._completed.get(step)
+        if cached is not None:
+            return cached
+        inside[0] += 1
+        runs.append(inside[0])
+        time.sleep(0.05)
+        inside[0] -= 1
+        wp._completed[step] = {"losses": [float(len(runs))]}
+        return wp._completed[step]
+
+    wp._run_step = body
+    out = []
+    threads = [threading.Thread(target=lambda: out.append(wp.run_step(3)))
+               for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert runs == [1]                  # one execution, never two at once
+    assert out == [{"losses": [1.0]}] * 2

@@ -9,6 +9,7 @@ control plane, the distributed executor) imported alone. No module imports grpc 
 no grpcio): only the functions that open a channel or a server do."""
 
 import os
+import re
 import subprocess
 import sys
 
@@ -157,12 +158,19 @@ sys.exit(3 if bad else 0)
     ("torch_lockdep", ["--check"]),
     ("torch_fidelity_report", ["--device", "cpu", "--steps", "1"]),
     ("torch_verify_plan", ["--device", "cpu", "--check"]),
-    ("torch_request_trace", ["--demo", "--device", "cpu"])])
+    ("torch_request_trace", ["--demo", "--device", "cpu"]),
+    ("torch_perf_gate", [
+        "--history", os.devnull, "--check", "--keys", "quantized_ar_x",
+        "--record-value", "quantized_ar_x=3.9", "--plan-diff",
+        "tests/fixtures/coll_flip_before.json,"
+        "tests/fixtures/coll_flip_before.json"]),
+    ("torch_quant_ratio", ["--device", "cpu", "--check"])])
 def test_port_tool_imports_no_jax(tool, args):
     """The port's tools run (the lint over the package, the fidelity
-    fixture, the plan verifier's self-test and the flight-recorder demo on
-    the CPU) in a fresh interpreter without importing jax or anything of
-    the JAX package."""
+    fixture, the plan verifier's self-test, the flight-recorder demo on
+    the CPU, the perf gate's check with a plan diff and the int8 wire
+    ratio's check) in a fresh
+    interpreter without importing jax or anything of the JAX package."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _TOOL_PROBE, tool, *args],
                          cwd=ROOT, env=env, capture_output=True, text=True,
@@ -196,7 +204,7 @@ def test_every_example_is_probed():
 _READ_ONLY_TOOLS = [f"tools/torch_{name}.py" for name in (
     "cli", "trace_summary", "plan_diff", "verify_plan", "plan_explain",
     "ledger_report", "watch", "request_trace", "metrics_dump",
-    "obs_overhead", "run_fx")]
+    "obs_overhead", "run_fx", "perf_gate", "quant_ratio")]
 
 
 @pytest.mark.parametrize("path", _EXAMPLE_FILES + [
@@ -212,3 +220,31 @@ def test_examples_and_tools_import_no_jax(path):
                          cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+_SMOKE_SCRIPTS = sorted(
+    f"scripts/{f}" for f in os.listdir(os.path.join(ROOT, "scripts"))
+    if f.startswith("torch_") and f.endswith("_smoke.sh"))
+
+# What a port smoke script must not name: the JAX package, jax itself,
+# bench.py, a JAX tool (a tools/ script without the torch_ prefix) or a
+# JAX test (a tests/ file without the torch_ prefix).
+_JAX_REFERENCE = re.compile(
+    r"tepdist_tpu(?!_torch)|\bjax\b|JAX_PLATFORMS|\bbench\b|bench\.py"
+    r"|tools/(?!torch_)\w+\.py|tests/test_(?!torch_)\w+\.py")
+
+
+def test_every_smoke_script_is_probed():
+    assert len(_SMOKE_SCRIPTS) >= 13, _SMOKE_SCRIPTS
+
+
+@pytest.mark.parametrize("path", _SMOKE_SCRIPTS)
+def test_smoke_scripts_run_nothing_of_the_jax_package(path):
+    """Each ``scripts/torch_*_smoke.sh`` calls only the port's tools, its
+    package and its tests: outside comments, no line names the JAX
+    package, jax, bench.py, a JAX tool or a JAX test."""
+    with open(os.path.join(ROOT, path)) as f:
+        code = [line for line in f
+                if not line.lstrip().startswith("#")]
+    bad = [line.rstrip() for line in code if _JAX_REFERENCE.search(line)]
+    assert not bad, bad

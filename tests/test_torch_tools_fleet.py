@@ -85,11 +85,53 @@ def test_watch_demo_alerts_match_the_reference(faulted):
     finally:
         jfaults.reset()
         faults.reset()
-    assert (out["rc"], jrc) == (0, 0)
-    want = {a["kind"] for a in _json(jt)["alerts"]}
-    got = {a["kind"] for a in out["status"]["alerts"]}
+    # Each side's exit code with its alerts' details, so a failure names
+    # the demo that raised it and why.
+    want_alerts = _json(jt)["alerts"]
+    got_alerts = out["status"]["alerts"]
+    assert jrc == 0, ("jax", jrc, want_alerts)
+    assert out["rc"] == 0, ("torch", out["rc"], got_alerts,
+                            out["status"]["workers"])
+    want = {a["kind"] for a in want_alerts}
+    got = {a["kind"] for a in got_alerts}
     assert got == want
     assert got == ({"straggler", "loss_spike"} if faulted else set())
+
+
+def test_watch_demo_reads_only_its_own_records():
+    """The port's demo attaches its watchtower after a warm-up step with
+    its cursors at the rings' end: a second demo in the same process
+    takes in no more records than the first (the rings are process-wide
+    and still hold the first demo's), and the last heartbeats of earlier
+    fleets in the process (the registry's ``heartbeat_rtt_ms:<ti>``
+    gauges: a slow worker 1, a worker 3 this fleet lacks) raise no
+    straggler. Both stale gauges failed the unfaulted demo of the JAX
+    package (worker 3) and the port's (worker 1) in a whole ``-n 6``
+    run."""
+    from tepdist_tpu_torch.runtime import faults
+    from tepdist_tpu_torch.telemetry import metrics, watchtower
+    from tools import torch_watch
+
+    argv = ["--demo", "--steps", "4", "--once", "--check", "--json",
+            "--device", "cpu"]
+    records = []
+    watchtower.board().clear()    # the faulted demo's alerts stay active
+    for ti, rtt_ms in ((1, 80.0), (3, 8.4)):
+        metrics().gauge(f"heartbeat_rtt_ms:{ti}").set(rtt_ms)
+        metrics().histogram(f"heartbeat_rtt_ms:{ti}").observe(rtt_ms)
+    try:
+        for _ in range(2):
+            out = torch_watch.main(argv)
+            assert out["rc"] == 0, out["status"]["alerts"]
+            records.append({w: st["records"] for w, st in
+                            out["status"]["workers"].items()})
+    finally:
+        faults.reset()
+        watchtower.board().clear()
+    first, second = records
+    assert sorted(first) == sorted(second) == [0, 1]
+    for w in first:
+        assert 0 < second[w] <= first[w] * 1.25, records
 
 
 def test_request_trace_demo_matches_the_reference():
